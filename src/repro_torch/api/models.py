@@ -1,0 +1,156 @@
+"""Typed model classes (port of ``repro.api.models``; LogHD so far).
+
+A model is a frozen dataclass of tensors.  It declares the ``stored_leaves``
+that count against the memory budget and receive bit flips, its
+``model_bits`` accounting and a plain-torch ``predict_encoded``, and it
+supports the robustness pipeline ``quantized(bits)`` ->
+``corrupted_materialized(p, seeds)`` -> predict.
+
+``to_dict``/``from_dict`` flatten a model to its field dict; the order of
+that dict (bundles, profiles, codebook, sigma_inv) is the order in which a
+corruption takes one seed per stored leaf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, ClassVar, Sequence
+
+import torch
+
+from repro_torch.core.profiles import activations, decode_profiles
+from repro_torch.core.quantize import QTensor, dequantize, quantize
+
+__all__ = ["HDModel", "LogHDModel", "MODEL_CLASSES"]
+
+
+def _shape(leaf) -> tuple:
+    """Shape of a tensor or QTensor leaf (QTensor stores codes)."""
+    return tuple(leaf.codes.shape if isinstance(leaf, QTensor) else leaf.shape)
+
+
+class HDModel:
+    """Shared behaviour of the typed classifier models.
+
+    Subclasses are frozen dataclasses; ``aux_fields`` names the static
+    configuration fields (not arrays)."""
+
+    method: ClassVar[str]
+    stored_leaves: ClassVar[tuple]
+    aux_fields: ClassVar[tuple] = ()
+    # False for subclasses whose predict math the kernels do not implement
+    kernel_dispatch: ClassVar[bool] = True
+
+    def to_dict(self) -> dict:
+        """Field dict without the aux fields and without None fields."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if f.name not in self.aux_fields
+                and getattr(self, f.name) is not None}
+
+    @classmethod
+    def from_dict(cls, d: dict, **aux) -> "HDModel":
+        kw = {f.name: d.get(f.name) for f in dataclasses.fields(cls)
+              if f.name not in cls.aux_fields}
+        kw.update(aux)
+        return cls(**kw)
+
+    def aux(self) -> dict:
+        return {n: getattr(self, n) for n in self.aux_fields}
+
+    def replace(self, **updates) -> "HDModel":
+        return dataclasses.replace(self, **updates)
+
+    # ------------------------------------------- robustness pipeline ------
+    def quantized(self, bits: int) -> "HDModel":
+        """Post-training quantize the stored leaves to `bits`-bit codes."""
+        return self.replace(**{name: quantize(getattr(self, name), bits)
+                               for name in self.stored_leaves})
+
+    def materialized(self) -> "HDModel":
+        """Dequantize any QTensor leaves back to f32 for inference."""
+        updates = {name: dequantize(getattr(self, name))
+                   for name in self.stored_leaves
+                   if isinstance(getattr(self, name), QTensor)}
+        return self.replace(**updates) if updates else self
+
+    def corrupted_materialized(self, p: float, seeds: Sequence[int],
+                               scope: str = "all") -> "HDModel":
+        """Corrupt + dequantize in one step — the fault-sweep trial body:
+        the ``flip_corrupt`` kernel on the card, its plain version on the
+        CPU.  ``seeds`` holds one int32 seed per ``to_dict()`` leaf."""
+        from repro_torch.api.dispatch import corrupt_materialize
+        return corrupt_materialize(self, p, seeds, scope)
+
+    def sweep_under_flips(self, bits: int, p_grid, h_test, y_test, **kw):
+        """(|p_grid|, n_trials) accuracy matrix; see
+        ``repro_torch.core.evaluate.sweep_under_flips``."""
+        from repro_torch.core.evaluate import sweep_under_flips
+        return sweep_under_flips(self, bits, p_grid, h_test, y_test, **kw)
+
+    # --------------------------------------------------------- interface --
+    def predict_encoded(self, h: torch.Tensor) -> torch.Tensor:
+        """Labels for pre-encoded queries: (B, D) -> (B,) int64."""
+        raise NotImplementedError
+
+    def predict(self, x) -> torch.Tensor:
+        """Encode raw features with the model's own encoder, then predict."""
+        from repro_torch.hdc.encoders import encode_batched
+        return self.predict_encoded(encode_batched(self.enc, x,
+                                                   self.encoder_kind))
+
+    def model_bits(self, bits: int) -> int:
+        raise NotImplementedError
+
+    def stored_bytes(self) -> int:
+        """Bytes of the stored leaves as held now: f32 arrays at 4 bytes a
+        word, QTensor leaves at their int8 codes plus the f32 scale."""
+        total = 0
+        for name in self.stored_leaves:
+            v = getattr(self, name)
+            if isinstance(v, QTensor):
+                total += v.codes.numel() * v.codes.element_size() + 4
+            else:
+                total += v.numel() * v.element_size()
+        return total
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LogHDModel(HDModel):
+    """The paper's class-axis compressor: n bundles + C activation profiles."""
+
+    enc: dict
+    bundles: Any                      # (n, D) f32 or QTensor
+    profiles: Any                     # (C, n) f32 or QTensor
+    codebook: Any                     # (C, n) int32 — structural, protected
+    sigma_inv: Any = None             # (n, n) for the Mahalanobis variant
+    metric: str = "l2"
+    encoder_kind: str = "cos"
+
+    method: ClassVar[str] = "loghd"
+    stored_leaves: ClassVar[tuple] = ("bundles", "profiles")
+    aux_fields: ClassVar[tuple] = ("metric", "encoder_kind")
+
+    def predict_encoded(self, h: torch.Tensor) -> torch.Tensor:
+        """Profile decode (Eq. 5-7) in plain torch: A(x) = h M^T, then the
+        nearest per-class profile under ``self.metric``."""
+        acts = activations(self.bundles, h)
+        return decode_profiles(self.profiles, acts, self.metric,
+                               sigma_inv=self.sigma_inv)
+
+    def model_bits(self, bits: int) -> int:
+        """n*D*bits bundles + C*n*bits profiles (both are flip-injected)."""
+        from repro_torch.core.loghd import memory_bits
+        n, d = _shape(self.bundles)
+        c, _ = _shape(self.profiles)
+        return memory_bits(c, d, n, bits)
+
+    @property
+    def n_classes(self) -> int:
+        return _shape(self.profiles)[0]
+
+    @property
+    def n_bundles(self) -> int:
+        return _shape(self.bundles)[0]
+
+
+MODEL_CLASSES = {cls.method: cls for cls in (LogHDModel,)}

@@ -1,0 +1,107 @@
+"""HDC encoders: feature vector -> D-dimensional hypervector (port of
+``repro.hdc.encoders``).
+
+  * "cos"     phi(x) = cos(x W + b) * sin(x W)
+  * "rp"      phi(x) = x W
+  * "rp_sign" phi(x) = sign(x W)
+
+Outputs are L2-normalised, the train-calibrated DC component ``center`` is
+removed, and the result is normalised again, as in the JAX package.
+
+The projection ``x @ proj`` is a plain large matrix product and stays
+``torch.matmul``, as the JAX package leaves it to XLA.  It runs in full
+float32: TF32 is switched off for CUDA matmuls when this module is used
+(``_no_tf32``), because TF32 keeps about three decimal digits and the port
+is held against the reference at float32 tolerances.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Literal, Optional
+
+import torch
+
+from repro_torch.hdc.conventional import l2_normalize
+
+EncoderKind = Literal["cos", "rp", "rp_sign"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    in_features: int
+    dim: int = 10_000            # D; paper default D = 10,000
+    kind: EncoderKind = "cos"
+    bandwidth: float = 2.0       # z = xW / bandwidth
+    seed: int = 0
+
+
+def _no_tf32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def init_encoder(cfg: EncoderConfig, *, device,
+                 generator: Optional[torch.Generator] = None,
+                 proj: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None) -> dict:
+    """W ~ N(0, 1) / (sqrt(F) * bandwidth), b ~ U[0, 2*pi), center = 0.
+
+    Draws from `generator` (default: a generator on `device` seeded with
+    ``cfg.seed``).  ``proj``/``bias`` may be injected instead — the JAX
+    package draws them from threefry, which no torch generator reproduces —
+    and are then taken as they are (bandwidth already folded in)."""
+    device = torch.device(device)
+    if generator is None and (proj is None or bias is None):
+        generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    if proj is None:
+        proj = torch.randn((cfg.in_features, cfg.dim), generator=generator,
+                           device=device)
+        proj = proj / (math.sqrt(cfg.in_features) * cfg.bandwidth)
+    if bias is None:
+        bias = torch.rand((cfg.dim,), generator=generator,
+                          device=device) * (2.0 * math.pi)
+    return {"proj": torch.as_tensor(proj, dtype=torch.float32, device=device),
+            "bias": torch.as_tensor(bias, dtype=torch.float32, device=device),
+            "center": torch.zeros((cfg.dim,), device=device)}
+
+
+def encode(params: dict, x: torch.Tensor, kind: EncoderKind = "cos"
+           ) -> torch.Tensor:
+    """phi(x): (..., F) -> (..., D), L2-normalized float32."""
+    _no_tf32()
+    x = torch.as_tensor(x, dtype=torch.float32, device=params["proj"].device)
+    z = x @ params["proj"]
+    if kind == "cos":
+        h = torch.cos(z + params["bias"]) * torch.sin(z)
+    elif kind == "rp":
+        h = z
+    elif kind == "rp_sign":
+        h = torch.sign(z)
+    else:
+        raise ValueError(f"unknown encoder kind: {kind}")
+    return l2_normalize(l2_normalize(h) - params["center"])
+
+
+def encode_batched(params: dict, x: torch.Tensor, kind: EncoderKind,
+                   batch_size: int = 4096) -> torch.Tensor:
+    """Streaming encode for large N (bounds peak memory at batch_size * D)."""
+    n = x.shape[0]
+    if n <= batch_size:
+        return encode(params, x, kind)
+    return torch.cat([encode(params, x[i:i + batch_size], kind)
+                      for i in range(0, n, batch_size)])
+
+
+def fit_encoder(cfg: EncoderConfig, x_train, *, device,
+                generator: Optional[torch.Generator] = None,
+                proj: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None):
+    """Initialise the encoder and calibrate its DC-removal ``center`` on the
+    training set.  Returns (params, h_train), h_train centered and
+    re-normalized."""
+    params = init_encoder(cfg, device=device, generator=generator, proj=proj,
+                          bias=bias)
+    h = encode_batched(params, x_train, cfg.kind)   # center = 0: l2n(phi)
+    center = h.mean(dim=0)
+    return {**params, "center": center}, l2_normalize(h - center)

@@ -1,0 +1,174 @@
+"""The port's kernel wrappers on the CPU: their plain PyTorch versions against
+the JAX package's oracles (``ref.py``) and its Pallas kernels in interpret
+mode, on the same numpy-seeded inputs.
+
+The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
+each of them against these plain versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.bundle_sim.ops import bundle_similarity as jax_bundle_sim
+from repro.kernels.bundle_sim.ref import bundle_similarity_ref as jax_bs_ref
+from repro.kernels.flip_corrupt.ops import flip_corrupt as jax_flip_corrupt
+from repro.kernels.flip_corrupt.ref import flip_corrupt_ref as jax_fc_ref
+from repro.kernels.profile_decode.ops import \
+    profile_decode_scores as jax_profile_decode
+from repro.kernels.profile_decode.ref import \
+    profile_decode_scores_ref as jax_pd_ref
+from repro_torch.kernels import _build, common
+from repro_torch.kernels.bundle_sim import bundle_similarity
+from repro_torch.kernels.flip_corrupt import flip_corrupt, flip_corrupt_ref
+from repro_torch.kernels.flip_corrupt.ref import _mul32, flip_threshold
+from repro_torch.kernels.profile_decode import profile_decode_scores
+
+# the JAX package's own kernel tolerances (tests/test_kernels.py)
+TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same numpy values as a torch tensor and a jax array of `dtype`
+    (bf16 rounding is round-to-nearest-even in both)."""
+    t = torch.from_numpy(x)
+    j = jnp.asarray(x)
+    if dtype == "bfloat16":
+        return t.to(torch.bfloat16), j.astype(jnp.bfloat16)
+    return t, j
+
+
+@pytest.mark.parametrize("b,d,n", [(8, 256, 4), (33, 617, 5), (16, 1000, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bundle_sim_plain_matches_jax(b, d, n, dtype):
+    rng = np.random.default_rng(b + d + n)
+    h = rng.standard_normal((b, d)).astype(np.float32)
+    m = rng.standard_normal((n, d)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=-1, keepdims=True)
+    ht, hj = _pair(h, dtype)
+    got = bundle_similarity(ht, torch.from_numpy(m))
+    assert got.shape == (b, n) and got.dtype == torch.float32
+    want_ref = np.asarray(jax_bs_ref(hj, jnp.asarray(m)))
+    want_pallas = np.asarray(jax_bundle_sim(hj, jnp.asarray(m),
+                                            interpret=True))
+    np.testing.assert_allclose(got.numpy(), want_ref, **TOL[dtype])
+    np.testing.assert_allclose(got.numpy(), want_pallas, **TOL[dtype])
+
+
+@pytest.mark.parametrize("b,n,c", [(8, 4, 5), (64, 6, 26), (100, 10, 26),
+                                   (17, 40, 70)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_profile_decode_plain_matches_jax(b, n, c, dtype):
+    rng = np.random.default_rng(b + n + c)
+    a = rng.standard_normal((b, n)).astype(np.float32)
+    p = rng.standard_normal((c, n)).astype(np.float32)
+    at, aj = _pair(a, dtype)
+    pt, pj = _pair(p, dtype)
+    got = profile_decode_scores(at, pt)
+    assert got.shape == (b, c) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_pd_ref(aj, pj)),
+                               **TOL[dtype])
+    pallas = np.asarray(jax_profile_decode(aj, pj, interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, **TOL[dtype])
+    if dtype == "float32":
+        np.testing.assert_array_equal(got.argmax(-1).numpy(),
+                                      pallas.argmax(-1))
+
+
+def _codes(rng, shape, bits):
+    lo, hi = (0, 2) if bits == 1 else (-(1 << (bits - 1)), 1 << (bits - 1))
+    return rng.integers(lo, hi, size=shape).astype(np.int8)
+
+
+@pytest.mark.parametrize("shape", [(1000,), (7, 130), (3, 5, 37)])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("p", [0.0, 0.1, 0.5, 1.0])
+def test_flip_corrupt_plain_bit_exact(shape, bits, p):
+    rng = np.random.default_rng(bits * 100 + len(shape))
+    codes = _codes(rng, shape, bits)
+    scale = np.float32(0.0371)
+    for seed in (0, 42, (1 << 31) - 1, -(1 << 31)):
+        got = flip_corrupt(torch.from_numpy(codes), torch.tensor(scale),
+                           bits, p, seed).numpy()
+        want = np.asarray(jax_fc_ref(jnp.asarray(codes), jnp.float32(scale),
+                                     p, seed, bits=bits))
+        assert got.shape == shape and got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("bits,p", [(1, 0.3), (4, 0.13), (8, 0.5)])
+def test_flip_corrupt_plain_matches_pallas_interpret(bits, p):
+    rng = np.random.default_rng(bits)
+    codes = _codes(rng, (40, 300), bits)
+    got = flip_corrupt(torch.from_numpy(codes), torch.tensor(0.5), bits, p,
+                       1234).numpy()
+    want = np.asarray(jax_flip_corrupt(jnp.asarray(codes), jnp.float32(0.5),
+                                       bits, p, 1234, interpret=True))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_mul32_wraps_exactly():
+    """The int64 half-word product equals the 32-bit wrapped product, also
+    for the largest words, whose full product would overflow int64."""
+    rng = np.random.default_rng(0)
+    xs = np.concatenate([rng.integers(0, 1 << 32, size=2000, dtype=np.uint64),
+                         np.array([0, 1, (1 << 32) - 1], np.uint64)])
+    x = torch.from_numpy(xs.astype(np.int64))
+    for c in (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x7FEB352D, 0x846CA68B,
+              0xFFFFFFFF):
+        got = _mul32(x, c).numpy()
+        want = np.array([(int(v) * c) & 0xFFFFFFFF for v in xs], np.int64)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("p", [0.0, 1e-8, 0.1, 0.5, 0.999999, 1.0, 1.5, -0.2])
+def test_flip_threshold_matches_reference(p):
+    from repro.kernels.flip_corrupt.flip_corrupt import \
+        flip_threshold as jax_threshold
+    assert flip_threshold(p) == int(jax_threshold(jnp.float32(p)))
+
+
+def test_cpu_tensors_take_plain_version_and_count_nothing():
+    common.reset_launches()
+    h = torch.randn(4, 64)
+    m = torch.nn.functional.normalize(torch.randn(3, 64), dim=-1)
+    acts = bundle_similarity(h, m)
+    profile_decode_scores(acts, torch.randn(5, 3))
+    flip_corrupt(torch.zeros(10, dtype=torch.int8), torch.tensor(1.0), 4, 0.5,
+                 3)
+    assert sum(common.launches.values()) == 0
+    assert not common.on_card(h, m)
+
+
+def test_wrapper_argument_checks():
+    codes = torch.zeros(10, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        flip_corrupt(codes, torch.tensor(1.0), 9, 0.1, 0)
+    with pytest.raises(ValueError):
+        flip_corrupt(codes, torch.tensor(1.0), 0, 0.1, 0)
+    with pytest.raises(ValueError):
+        flip_corrupt(codes, torch.tensor(1.0), 4, 0.1, 1 << 31)
+    with pytest.raises(ValueError):
+        common.on_card(torch.zeros(1), torch.zeros(1, device="meta"))
+    with pytest.raises(ValueError):
+        common.kernel_device(torch.device("meta"))
+
+
+def test_plain_flip_corrupt_is_plain_ref():
+    """The wrapper's CPU route is exactly the plain version."""
+    codes = torch.from_numpy(_codes(np.random.default_rng(5), (6, 9), 4))
+    a = flip_corrupt(codes, torch.tensor(0.25), 4, 0.2, 77)
+    b = flip_corrupt_ref(codes, torch.tensor(0.25), 0.2, 77, bits=4)
+    assert torch.equal(a, b)
+
+
+def test_build_names_every_source_by_hash():
+    names = _build.kernel_names()
+    assert names == ["bundle_sim", "flip_corrupt", "profile_decode"]
+    for name in names:
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
