@@ -7,14 +7,25 @@ Run from the root of a checkout, with one card visible:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card, then runs
-the main path through the public entry points at the paper's full width:
-the isolet surrogate (F=617, C=26, 6,238 train / 1,559 test rows),
-``make_classifier("loghd", ..., dim=10000, k=2, extra_bundles=5,
-refine_epochs=0)`` -> fit -> predict -> the 1-bit and 4-bit bit-flip sweeps.
-It checks the launch counts of that run, that the fit repeats bit for bit,
-that kernel and plain predict agree, and that the sweep's p=0 row equals the
-clean accuracy of the quantized model; then it times every kernel, its plain
-version and a library call with CUDA events.
+two paths through the public entry points at the paper's full width, the
+isolet surrogate (F=617, C=26, D=10,000, 6,238 train / 1,559 test rows):
+
+1. LogHD without refinement (``make_classifier("loghd", ..., k=2,
+   extra_bundles=5, refine_epochs=0)``) -> fit -> predict -> the 1-bit and
+   4-bit bit-flip sweeps;
+2. the matched-memory comparison at budget 0.4 on one shared encoder,
+   encodings and prototypes (``benchmarks/common.py``): LogHD (n=10, 50
+   Eq. 9 epochs), SparseHD (sparsity 0.6, 30 OnlineHD epochs), hybrid
+   (n=20, sparsity 0.48, 50 epochs) and conventional (10 OnlineHD epochs),
+   each fitted with every minibatch through ``bundle_update``, predicted,
+   and swept at 1 bit with the hypervector scope.
+
+It checks each path's launch counts, that fits repeat bit for bit (the
+LogHD repeat with TF32 turned on globally, watching that every matmul of
+the fit runs in full float32), that kernel and plain predict and training
+agree, and that each sweep's p=0 row equals the clean accuracy of the
+quantized model; then it times every kernel, its plain version and a
+library call with CUDA events.
 
 Output: a JSON line with one entry per kernel, the card's name and power
 limit as ``nvidia-smi`` reports them, and as the last line
@@ -46,6 +57,8 @@ KERNELS = {
                        "src/repro/kernels/profile_decode/profile_decode.py:50"),
     "flip_corrupt": ("src/repro_torch/kernels/csrc/flip_corrupt.cu",
                      "src/repro/kernels/flip_corrupt/flip_corrupt.py:116"),
+    "bundle_update": ("src/repro_torch/kernels/csrc/bundle_update.cu",
+                      "src/repro/kernels/bundle_update/bundle_update.py:74"),
 }
 
 
@@ -131,13 +144,18 @@ def phase_kernels(torch, dev) -> dict:
     from repro_torch.hdc.conventional import l2_normalize
     from repro_torch.kernels.bundle_sim import (bundle_similarity,
                                                 bundle_similarity_ref)
+    from repro_torch.kernels.bundle_update import (bundle_update,
+                                                   bundle_update_ref)
     from repro_torch.kernels.flip_corrupt import (flip_corrupt,
                                                   flip_corrupt_ref)
     from repro_torch.kernels.profile_decode import (profile_decode_scores,
                                                     profile_decode_scores_ref)
     g = torch.Generator(device=dev).manual_seed(0)
     errs = {}
-    for (b, d, n) in [(1559, 10000, 10), (37, 1000, 3), (64, 1000, 40),
+    # the predict shapes of the four families: LogHD (n=10), conventional
+    # (C=26), SparseHD at budget 0.4 (D'=4000), hybrid (n=20, D'=5200)
+    for (b, d, n) in [(1559, 10000, 10), (1559, 10000, 26), (1559, 4000, 26),
+                      (1559, 5200, 20), (37, 1000, 3), (64, 1000, 40),
                       (37, 617, 5)]:
         for dtype in (torch.float32, torch.bfloat16):
             h = torch.randn((b, d), generator=g, device=dev).to(dtype)
@@ -187,6 +205,32 @@ def phase_kernels(torch, dev) -> dict:
     log(f"flip_corrupt: bit-exact over 2 shapes x bits {{1,4,8}} x "
         f"p {{0,0.1,1}} x 2 seeds")
     errs["flip_corrupt"] = worst
+    # (n, B, D): LogHD refine, hybrid base, SparseHD retrain at budget 0.4,
+    # conventional, then n > 32 and everything ragged
+    tol = TOL["float32"]
+    for (n, b, d) in [(10, 64, 10000), (20, 64, 10000), (26, 64, 4000),
+                      (26, 256, 10000), (40, 37, 1000), (3, 7, 130)]:
+        m = l2_normalize(torch.randn((n, d), generator=g, device=dev))
+        c = torch.randn((b, n), generator=g, device=dev)
+        h = l2_normalize(torch.randn((b, d), generator=g, device=dev))
+        got = bundle_update(m, c, h, 3e-4)
+        again = bundle_update(m, c, h, 3e-4)
+        want = bundle_update_ref(m, c, h, 3e-4)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        norms = torch.linalg.vector_norm(got, dim=-1)
+        log(f"bundle_update  ({n}, {b}, {d}): max_abs_err {err:.3e}, "
+            f"row norms within {max_err(norms, torch.ones_like(norms)):.2e} "
+            f"of 1")
+        check(got.shape == (n, d) and got.dtype == torch.float32,
+              "bundle_update output shape / dtype")
+        check(torch.equal(got, again), "bundle_update is not bitwise "
+              "repeatable")
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        torch.testing.assert_close(norms, torch.ones_like(norms), rtol=tol,
+                                   atol=tol)
+        if (n, b, d) == (10, 64, 10000):
+            errs["bundle_update"] = err
     return errs
 
 
@@ -237,7 +281,7 @@ def phase_main_path(torch, dev) -> dict:
     check(labels.shape == (len(x_te),), "predict shape")
     check(0.0 <= acc <= 1.0 and acc > 0.5,
           f"clean accuracy {acc} is below 0.5")
-    for name in KERNELS:
+    for name in ("bundle_sim", "profile_decode", "flip_corrupt"):
         check(launches.get(name, 0) > 0, f"{name} never launched on the path")
     plain = dispatch.predict_encoded(model, h_te, use_kernels=False)
     agree = float((plain == labels).float().mean())
@@ -274,12 +318,254 @@ def phase_main_path(torch, dev) -> dict:
             "sweep_s": sweep_s}
 
 
-def phase_times(torch, main: dict, rates: dict) -> dict:
-    """Kernel, plain and library times at the main path's shapes."""
+class MatmulWatch:
+    """A torch function mode that records, at every matmul-like call, whether
+    float32 matmuls then run in full float32 (``precision.in_full_f32``)."""
+
+    def __init__(self, torch):
+        from repro_torch.precision import in_full_f32
+        funcs = (torch.matmul, torch.Tensor.matmul, torch.einsum, torch.mm,
+                 torch.addmm, torch.linalg.inv)
+        seen = self.seen = []
+
+        class Mode(torch.overrides.TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if func in funcs:
+                    seen.append(in_full_f32())
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+
+def budget_families(spec, budget: float = 0.4) -> dict:
+    """The matched-memory settings of ``benchmarks/common.py`` at `budget`:
+    family -> (make_classifier keywords, bundle_update launches of its
+    fit)."""
+    from repro_torch.core.codebook import min_bundles
+    c, k = spec.n_classes, 2
+    n_min = min_bundles(c, k)
+    n_loghd = max(n_min, int(budget * c))
+    n_hybrid = max(n_min, int(2 * budget * c))
+    steps64 = -(-spec.n_train // 64)
+    return {
+        "loghd": (dict(k=k, extra_bundles=n_loghd - n_min, refine_epochs=50,
+                       refine_batch=64, codebook_method="distance"),
+                  50 * steps64),
+        "sparsehd": (dict(sparsity=1.0 - budget, retrain_epochs=30),
+                     30 * steps64),
+        "hybrid": (dict(sparsity=float(min(max(
+                            1.0 - budget * c / n_hybrid, 0.0), 0.95)),
+                        k=k, extra_bundles=n_hybrid - n_min,
+                        refine_epochs=50, refine_batch=64,
+                        codebook_method="distance"),
+                   50 * steps64),
+        "conventional": (dict(refine_epochs=10),
+                         10 * -(-spec.n_train // 256)),
+    }
+
+
+def phase_matched_memory(torch, dev) -> dict:
+    """The four families at budget 0.4 on one shared encoder / encodings /
+    prototypes set: fit -> predict -> 1-bit sweep (scope "hv") each, with
+    launch counting, then the checks."""
+    from repro_torch.api import dispatch, fit_engine, make_classifier
+    from repro_torch.core.bundling import build_bundles
+    from repro_torch.core.profiles import estimate_profiles
+    from repro_torch.data.synth import load_dataset
+    from repro_torch.hdc.conventional import class_prototypes
+    from repro_torch.hdc.encoders import (EncoderConfig, encode_batched,
+                                          fit_encoder)
+    from repro_torch.kernels import common
+
+    x_tr, y_tr, x_te, y_te, spec = load_dataset("isolet")
+    enc_cfg = EncoderConfig(spec.n_features, 10_000, "cos")
+    enc, h_tr = fit_encoder(enc_cfg, x_tr, device=dev)
+    h_te = encode_batched(enc, x_te, "cos")
+    y_tr_dev = torch.as_tensor(y_tr, device=dev).long()
+    y_dev = torch.as_tensor(y_te, device=dev)
+    protos = class_prototypes(h_tr, y_tr_dev, spec.n_classes)
+    shared = dict(enc=enc, encoded=h_tr, prototypes=protos)
+    families = budget_families(spec)
+
+    out = {}
+    for name, (kw, want_steps) in families.items():
+        clf = make_classifier(name, spec.n_classes, enc_cfg=enc_cfg, **kw)
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        clf = clf.fit(x_tr, y_tr, **shared)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        labels = clf.predict_encoded(h_te)
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        accs = clf.sweep_under_flips(
+            1, P_GRID, h_te, y_te, n_trials=N_TRIALS, scope="hv",
+            predict_encoded=dispatch.predict_encoded,
+            generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = dict(common.launches)
+        out[name] = dict(clf=clf, labels=labels, accs=accs, fit_s=fit_s,
+                         predict_s=predict_s, sweep_s=sweep_s,
+                         launches=launches, want_steps=want_steps)
+        log(f"{name:<12} fit {fit_s:.3f} s, predict {predict_s:.4f} s, "
+            f"1-bit sweep {sweep_s:.3f} s; launches {launches}")
+
+    # checks, after every count was read
+    for name, r in out.items():
+        model = r["clf"].model
+        got = r["launches"].get("bundle_update", 0)
+        check(got == r["want_steps"], f"{name}: bundle_update launched {got} "
+              f"times, not {r['want_steps']}")
+        check(r["launches"].get("bundle_sim", 0) > 0,
+              f"{name}: bundle_sim never launched")
+        if name in ("loghd", "hybrid"):
+            check(r["launches"].get("profile_decode", 0) > 0,
+                  f"{name}: profile_decode never launched")
+        want_flips = len(P_GRID) * N_TRIALS
+        check(r["launches"].get("flip_corrupt", 0) == want_flips,
+              f"{name}: flip_corrupt launched "
+              f"{r['launches'].get('flip_corrupt', 0)} times, not "
+              f"{want_flips}")
+        acc = float((r["labels"] == y_dev).float().mean())
+        plain = dispatch.predict_encoded(model, h_te, use_kernels=False)
+        agree = float((plain == r["labels"]).float().mean())
+        qacc = float((dispatch.predict_encoded(model.quantized(1), h_te)
+                      == y_dev).float().mean())
+        r.update(acc=acc, agree=agree, qacc=qacc)
+        log(f"{name:<12} accuracy {acc:.4f} (1-bit quantized {qacc:.4f}); "
+            f"kernel vs plain labels agree on {agree:.5f}; memory "
+            f"{model.model_bits(1)} bits at 1 bit; 1-bit sweep (rows p, "
+            f"columns trials, scope hv):")
+        for p, row in zip(P_GRID, r["accs"]):
+            log(f"  p={p:<5} " + " ".join(f"{a:.4f}" for a in row))
+        check(acc > 0.5, f"{name}: clean accuracy {acc} is below 0.5")
+        check(agree >= 0.999, f"{name}: kernel and plain labels agree on "
+              f"only {agree}")
+        check(r["accs"].shape == (len(P_GRID), N_TRIALS), "sweep shape")
+        check(all(a == qacc for a in r["accs"][0]),
+              f"{name}: p=0 row {r['accs'][0]} != clean quantized {qacc}")
+
+    # the LogHD fit again, with TF32 on for the process: the fit must still
+    # run every matmul in full float32 and repeat the first fit bit for bit
+    loghd = out["loghd"]["clf"]
+    watch = MatmulWatch(torch)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with watch.mode:
+            again = make_classifier("loghd", spec.n_classes, enc_cfg=enc_cfg,
+                                    **families["loghd"][0]).fit(
+                x_tr, y_tr, **shared).model
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    check(len(watch.seen) > 0 and all(watch.seen),
+          f"{watch.seen.count(False)} of {len(watch.seen)} matmuls of the "
+          f"fit ran with TF32 allowed")
+    for leaf in ("bundles", "profiles"):
+        check(torch.equal(getattr(loghd.model, leaf), getattr(again, leaf)),
+              f"second LogHD fit differs in {leaf}")
+    log(f"second LogHD fit (TF32 on globally): bundles and profiles bitwise "
+        f"equal; all {len(watch.seen)} matmuls of the fit in full float32")
+
+    # Eq. 9 refinement through the kernel against the plain steps, on the
+    # card: allclose after 2 epochs, labels after all 50
+    cfg = loghd.cfg
+    b0 = build_bundles(protos, loghd.model.codebook, cfg.k)
+    kw = dict(lr=cfg.lr, batch_size=cfg.refine_batch, seed=cfg.seed)
+    short = {uk: fit_engine.fused_refine_bundles(
+        b0, h_tr, y_tr_dev, loghd.model.codebook, cfg.k, epochs=2,
+        use_kernel=uk, **kw) for uk in (True, False)}
+    torch.cuda.synchronize()
+    err2 = max_err(short[True], short[False])
+    torch.testing.assert_close(short[True], short[False], rtol=1e-5,
+                               atol=1e-6)
+    plain50 = fit_engine.fused_refine_bundles(
+        b0, h_tr, y_tr_dev, loghd.model.codebook, cfg.k,
+        epochs=cfg.refine_epochs, use_kernel=False, **kw)
+    plain_model = loghd.model.replace(
+        bundles=plain50,
+        profiles=estimate_profiles(plain50, h_tr, y_tr_dev, spec.n_classes))
+    agree50 = float((dispatch.predict_encoded(plain_model, h_te)
+                     == out["loghd"]["labels"]).float().mean())
+    err50 = max_err(loghd.model.bundles, plain50)
+    log(f"LogHD refinement, kernel vs plain steps: max abs diff "
+        f"{err2:.3e} after 2 epochs, {err50:.3e} after "
+        f"{cfg.refine_epochs}; labels agree on {agree50:.5f}")
+    check(agree50 >= 0.999, f"refinement kernel vs plain labels agree on "
+          f"only {agree50}")
+    return dict(families=out, h_tr=h_tr, y_tr=y_tr_dev)
+
+
+def phase_fit_profile(torch, mm: dict) -> dict:
+    """Where the LogHD fit's time goes: one Eq. 9 epoch (98 minibatch
+    steps) on the host clock and on the device (torch.profiler), the
+    device kernels a step runs, and the codebook search on the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import fit_engine
+    from repro_torch.core import codebook as cb
+    loghd = mm["families"]["loghd"]["clf"]
+    cfg, model = loghd.cfg, loghd.model
+    h, y = mm["h_tr"], mm["y_tr"]
+    steps = -(-h.shape[0] // cfg.refine_batch)
+
+    def epoch():
+        return fit_engine.fused_refine_bundles(
+            model.bundles, h, y, model.codebook, cfg.k, epochs=1, lr=cfg.lr,
+            batch_size=cfg.refine_batch, seed=cfg.seed)
+
+    epoch()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = statistics.median(walls) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        epoch()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    per_step = sum(e.count for e in kern) / steps
+    log(f"LogHD refine epoch ({steps} steps): wall {wall_ms:.3f} ms "
+        f"(median of 5), device busy {dev_ms:.3f} ms, so the device idles "
+        f"{1 - dev_ms / wall_ms:.1%} of the epoch; {per_step:.1f} device "
+        f"kernels and copies a step, {wall_ms / steps * 1e3:.1f} us of wall "
+        f"a step")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:90]}")
+    # the host-side codebook search of each LogHD-based fit (numpy)
+    hybrid_cfg = mm["families"]["hybrid"]["clf"].cfg.loghd
+    book_s = {}
+    for c in (cfg, hybrid_cfg):
+        t0 = time.perf_counter()
+        cb.build_codebook(c.n_classes, c.n_bundles, c.k, alpha=c.alpha,
+                          seed=c.seed, method=c.codebook_method)
+        book_s[c.n_bundles] = time.perf_counter() - t0
+    log("codebook search on the host: " + ", ".join(
+        f"n={n} {t:.3f} s" for n, t in book_s.items()))
+    return dict(epoch_wall_ms=wall_ms, epoch_device_ms=dev_ms,
+                steps=steps, kernels_per_step=per_step, codebook_s=book_s)
+
+
+def phase_times(torch, main: dict, mm: dict, rates: dict) -> dict:
+    """Kernel, plain and library times at the main paths' shapes."""
     import torch.nn.functional as F
+    from repro_torch.core.bundling import symbol_targets
     from repro_torch.hdc.conventional import l2_normalize
     from repro_torch.kernels.bundle_sim import (bundle_similarity,
                                                 bundle_similarity_ref)
+    from repro_torch.kernels.bundle_update import (bundle_update,
+                                                   bundle_update_ref)
     from repro_torch.kernels.flip_corrupt import (flip_corrupt,
                                                   flip_corrupt_ref)
     from repro_torch.kernels.profile_decode import (profile_decode_scores,
@@ -293,6 +579,16 @@ def phase_times(torch, main: dict, rates: dict) -> dict:
     n, c = m.shape[0], prof.shape[0]
     nq = q.codes.numel()
     bits = q.bits
+    # one Eq. 9 minibatch of the LogHD fit: its bundles, 64 training rows
+    # and their activation errors
+    lmodel = mm["families"]["loghd"]["clf"].model
+    mu = lmodel.bundles.contiguous()
+    hu = mm["h_tr"][:64].contiguous()
+    cu = (symbol_targets(lmodel.codebook, 2)[mm["y_tr"][:64]]
+          - hu @ mu.T).contiguous()
+    nu, du = mu.shape
+    bu = hu.shape[0]
+    lr = 3e-4
 
     cases = {
         "bundle_sim": dict(
@@ -317,6 +613,13 @@ def phase_times(torch, main: dict, rates: dict) -> dict:
             library=None,
             bytes=nq * 1 + nq * 4 + 4, ops=nq * (24 * bits + 8),
             op_type="int32"),
+        "bundle_update": dict(
+            kernel=lambda: bundle_update(mu, cu, hu, lr),
+            plain=lambda: bundle_update_ref(mu, cu, hu, lr),
+            library=lambda: F.normalize(torch.addmm(mu, cu.T, hu, alpha=lr),
+                                        dim=-1),
+            bytes=(2 * nu * du + bu * du + bu * nu) * 4,
+            ops=2 * nu * bu * du + 3 * nu * du, op_type="float32"),
     }
     out = {}
     for name, cs in cases.items():
@@ -368,15 +671,24 @@ def main() -> int:
 
     errs = phase_kernels(torch, dev)
     main_run = phase_main_path(torch, dev)
-    times = phase_times(torch, main_run, rates)
+    mm = phase_matched_memory(torch, dev)
+    phase_fit_profile(torch, mm)
+    times = phase_times(torch, main_run, mm, rates)
 
+    # launches of every path's run: slice 1's LogHD path and each family's
+    # fit -> predict -> sweep of the matched-memory phase
+    by_path = {"loghd_refine_off": main_run["launches"]}
+    by_path.update({f"matched_memory_{name}": r["launches"]
+                    for name, r in mm["families"].items()})
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": main_run["launches"].get(name, 0),
+            "launches": sum(c.get(name, 0) for c in by_path.values()),
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()},
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

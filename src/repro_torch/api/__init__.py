@@ -1,8 +1,9 @@
-"""repro_torch.api — the typed-estimator surface of the port (LogHD so far).
+"""repro_torch.api — the typed-estimator surface of the port: the
+"conventional", "sparsehd", "loghd" and "hybrid" classifier families.
 
     from repro_torch.api import make_classifier, dispatch
     clf = make_classifier("loghd", 26, 617, dim=10_000, k=2,
-                          extra_bundles=5, refine_epochs=0)   # on "cuda"
+                          extra_bundles=5, refine_epochs=50)  # on "cuda"
     clf = clf.fit(x_train, y_train)
     labels = clf.predict(x_test)                # bundle_sim + profile_decode
     accs = clf.sweep_under_flips(4, [0.0, 0.1], h_test, y_test,
@@ -11,13 +12,15 @@
 
 from repro_torch.api import dispatch
 from repro_torch.api.convert import from_reference, to_reference
-from repro_torch.api.models import HDModel, LogHDModel
+from repro_torch.api.models import (ConventionalModel, HDModel, HybridModel,
+                                    LogHDModel, SparseHDModel)
 from repro_torch.api.registry import (HDClassifier, MethodSpec,
                                       available_methods, get_method,
                                       make_classifier, register_method)
 from repro_torch.core.evaluate import sweep_under_flips
 
 __all__ = ["dispatch", "from_reference", "to_reference", "HDModel",
-           "LogHDModel", "HDClassifier", "MethodSpec", "available_methods",
+           "ConventionalModel", "SparseHDModel", "LogHDModel", "HybridModel",
+           "HDClassifier", "MethodSpec", "available_methods",
            "get_method", "make_classifier", "register_method",
            "sweep_under_flips"]

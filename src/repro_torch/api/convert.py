@@ -1,4 +1,5 @@
-"""Carry a LogHD model's weights between the JAX package and the port.
+"""Carry a model's weights between the JAX package and the port (all four
+families).
 
 The exchange format is plain numpy: the reference model's field dict,
 ``{k: np.asarray(v) for k, v in model.to_dict().items()}``, with the
@@ -8,10 +9,12 @@ encoder as a dict of arrays and each ``QTensor`` leaf as a
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from repro_torch.api.models import LogHDModel
+from repro_torch.api.models import MODEL_CLASSES, HDModel
 from repro_torch.core.quantize import QTensor
 
 
@@ -34,17 +37,34 @@ def _to_numpy(v):
     return v.cpu().numpy()
 
 
+def model_class(fields) -> type:
+    """The family whose fields these are: every field without a default is
+    present and none is foreign (LogHD's optional ``sigma_inv`` may be
+    missing; ``keep`` tells SparseHD from conventional, hybrid from
+    LogHD)."""
+    fields = set(fields)
+    for cls in MODEL_CLASSES.values():
+        names = {f.name for f in dataclasses.fields(cls)} - set(cls.aux_fields)
+        required = {f.name for f in dataclasses.fields(cls)
+                    if f.name in names and f.default is dataclasses.MISSING}
+        if required <= fields <= names:
+            return cls
+    raise ValueError(f"no model family has the fields {sorted(fields)}")
+
+
 def from_reference(arrays: dict, *, device, metric: str = "l2",
-                   encoder_kind: str = "cos") -> LogHDModel:
-    """The port's ``LogHDModel`` on `device` from a reference model's numpy
-    field dict."""
+                   encoder_kind: str = "cos") -> HDModel:
+    """The port's model on `device` from a reference model's numpy field
+    dict; the family is read from the field set.  `metric` applies to the
+    families that decode profiles."""
     device = torch.device(device)
-    return LogHDModel.from_dict({k: _to_torch(v, device)
-                                 for k, v in arrays.items()},
-                                metric=metric, encoder_kind=encoder_kind)
+    cls = model_class(arrays)
+    aux = {"metric": metric, "encoder_kind": encoder_kind}
+    return cls.from_dict({k: _to_torch(v, device) for k, v in arrays.items()},
+                         **{k: aux[k] for k in cls.aux_fields})
 
 
-def to_reference(model: LogHDModel) -> dict:
+def to_reference(model: HDModel) -> dict:
     """The inverse: the model's field dict as numpy arrays (QTensor leaves
     as ``(codes, scale, bits)``)."""
     return {k: _to_numpy(v) for k, v in model.to_dict().items()}

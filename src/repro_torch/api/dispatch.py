@@ -1,13 +1,15 @@
-"""The predict and corrupt surface that routes to the CUDA kernels (port of
-``repro.api.dispatch``).
+"""The predict, training-step and corrupt surface that routes to the CUDA
+kernels (port of ``repro.api.dispatch``).
 
 Predict: a model with the l2 metric whose queries lie on a CUDA device goes
-through ``bundle_sim`` and ``profile_decode``; the argmax stays in torch.
-Everything else (CPU tensors, the cos and maha metrics) takes the model's
-own plain-torch ``predict_encoded``.  Corrupt: each QTensor leaf goes
-through ``flip_corrupt`` (the kernel for CUDA tensors, its bit-exact plain
-version for CPU tensors).  PyTorch runs eagerly, so no compiled-executable
-cache is needed.
+through ``bundle_sim`` (every family) and ``profile_decode`` (LogHD,
+hybrid); the argmax stays in torch.  Everything else (CPU tensors, the cos
+and maha metrics) takes the model's own plain-torch ``predict_encoded``.
+Training: ``fused_bundle_update`` is the minibatch step of the fit engine,
+through ``bundle_update``.  Corrupt: each QTensor leaf goes through
+``flip_corrupt`` (the kernel for CUDA tensors, its bit-exact plain version
+for CPU tensors).  PyTorch runs eagerly, so no compiled-executable cache is
+needed.
 """
 
 from __future__ import annotations
@@ -17,29 +19,50 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from repro_torch.api.models import HDModel, LogHDModel
+from repro_torch.api.models import (ConventionalModel, HDModel, HybridModel,
+                                    LogHDModel, SparseHDModel)
 from repro_torch.core.faults import fault_skip_set, flip_bits_f32
 from repro_torch.core.quantize import QTensor, dequantize
 from repro_torch.hdc.conventional import l2_normalize
 from repro_torch.kernels import common
 from repro_torch.kernels.bundle_sim.ops import bundle_similarity
+from repro_torch.kernels.bundle_update.ops import bundle_update
+from repro_torch.kernels.bundle_update.ref import bundle_update_ref
 from repro_torch.kernels.flip_corrupt.ops import flip_corrupt
 from repro_torch.kernels.profile_decode.ops import profile_decode_scores
+from repro_torch.precision import full_f32
 
-__all__ = ["predict_fn", "predict_encoded", "corrupt_dequant",
-           "corrupt_materialize"]
+__all__ = ["predict_fn", "predict_encoded", "fused_bundle_update",
+           "corrupt_dequant", "corrupt_materialize"]
+
+
+def _activations(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """bundle_sim of queries against the l2-normalised rows of m."""
+    return bundle_similarity(h.contiguous(), l2_normalize(m).contiguous())
+
+
+def _decode(acts: torch.Tensor, profiles: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(profile_decode_scores(acts,
+                                              profiles.float().contiguous()),
+                        dim=-1)
 
 
 def _predict_kernel(model: HDModel, h: torch.Tensor) -> torch.Tensor:
-    """Kernel-routed l2 predict: argmax over the fused decode scores."""
+    """Kernel-routed l2 predict: argmax over the fused scores."""
+    if isinstance(model, ConventionalModel):
+        return torch.argmax(_activations(h, model.protos), dim=-1)
+    if isinstance(model, SparseHDModel):
+        h_s = l2_normalize(h[:, model.keep])
+        return torch.argmax(_activations(h_s, model.protos), dim=-1)
     if isinstance(model, LogHDModel):
-        acts = bundle_similarity(h.contiguous(),
-                                 l2_normalize(model.bundles).contiguous())
-        scores = profile_decode_scores(acts, model.profiles.float().contiguous())
-        return torch.argmax(scores, dim=-1)
+        return _decode(_activations(h, model.bundles), model.profiles)
+    if isinstance(model, HybridModel):
+        h_s = l2_normalize(h[:, model.keep])
+        return _decode(_activations(h_s, model.bundles), model.profiles)
     raise TypeError(f"no kernel route for {type(model).__name__}")
 
 
+@full_f32()
 def predict_encoded(model: HDModel, h: torch.Tensor,
                     use_kernels: Optional[bool] = None) -> torch.Tensor:
     """Labels for pre-encoded queries (B, D) -> (B,).
@@ -49,8 +72,8 @@ def predict_encoded(model: HDModel, h: torch.Tensor,
     path, which is how a run on the card compares the two."""
     model = model.materialized()
     if use_kernels is None:
-        use_kernels = (model.kernel_dispatch
-                       and common.use_kernels(h.device, model.metric))
+        use_kernels = (model.kernel_dispatch and common.use_kernels(
+            h.device, getattr(model, "metric", "l2")))
     if use_kernels:
         return _predict_kernel(model, h)
     return model.predict_encoded(h)
@@ -60,6 +83,20 @@ def predict_fn(model: HDModel,
                use_kernels: Optional[bool] = None) -> Callable:
     """``(model, h) -> labels`` for `model`'s family."""
     return functools.partial(predict_encoded, use_kernels=use_kernels)
+
+
+def fused_bundle_update(m: torch.Tensor, coeff: torch.Tensor,
+                        h: torch.Tensor, lr,
+                        use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """One training minibatch update l2n(m + lr * coeff^T h).
+
+    ``use_kernel=None`` or True: ``bundle_update``, the kernel for CUDA
+    tensors (or an error: there is no fallback) and its plain einsum +
+    ``l2_normalize`` version for CPU tensors.  False: that plain version on
+    any device."""
+    if use_kernel is False:
+        return bundle_update_ref(m, coeff, h, lr)
+    return bundle_update(m, coeff, h, lr)
 
 
 def corrupt_dequant(q: QTensor, p: float, seed: int) -> torch.Tensor:
@@ -72,12 +109,13 @@ def corrupt_materialize(model: HDModel, p: float, seeds: Sequence[int],
     """Corrupt + materialize a model's stored state: the sweep's trial body.
 
     ``seeds`` holds one int32 seed per leaf of ``model.to_dict()`` without
-    ``enc``, in that order (LogHD: bundles, profiles, codebook, sigma_inv),
-    as the reference splits one key per leaf.  Protected leaves keep their
-    slot and are only dequantized.  QTensor leaves go through
-    ``flip_corrupt`` with their seed; float leaves (sigma_inv) get IEEE-754
-    flips from a generator seeded with theirs — a different stream from the
-    reference's threefry, which the l2 decode never reads."""
+    ``enc``, in that order (LogHD: bundles, profiles, codebook, sigma_inv;
+    SparseHD: protos, keep), as the reference splits one key per leaf.
+    Protected leaves keep their slot and are only dequantized.  QTensor
+    leaves go through ``flip_corrupt`` with their seed; float leaves
+    (sigma_inv) get IEEE-754 flips from a generator seeded with theirs — a
+    different stream from the reference's threefry, which the l2 decode
+    never reads."""
     skip = fault_skip_set(scope)
     d = {k: v for k, v in model.to_dict().items() if k != "enc"}
     seeds = list(seeds)

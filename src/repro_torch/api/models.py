@@ -1,4 +1,5 @@
-"""Typed model classes (port of ``repro.api.models``; LogHD so far).
+"""Typed model classes for the four classifier families (port of
+``repro.api.models``).
 
 A model is a frozen dataclass of tensors.  It declares the ``stored_leaves``
 that count against the memory budget and receive bit flips, its
@@ -7,8 +8,9 @@ supports the robustness pipeline ``quantized(bits)`` ->
 ``corrupted_materialized(p, seeds)`` -> predict.
 
 ``to_dict``/``from_dict`` flatten a model to its field dict; the order of
-that dict (bundles, profiles, codebook, sigma_inv) is the order in which a
-corruption takes one seed per stored leaf.
+that dict (the reference's field order, e.g. LogHD's bundles, profiles,
+codebook, sigma_inv) is the order in which a corruption takes one seed per
+leaf, protected leaves (``keep``, ``codebook``) included.
 """
 
 from __future__ import annotations
@@ -20,8 +22,11 @@ import torch
 
 from repro_torch.core.profiles import activations, decode_profiles
 from repro_torch.core.quantize import QTensor, dequantize, quantize
+from repro_torch.hdc.conventional import l2_normalize, predict_from_encoded
+from repro_torch.precision import full_f32
 
-__all__ = ["HDModel", "LogHDModel", "MODEL_CLASSES"]
+__all__ = ["HDModel", "ConventionalModel", "SparseHDModel", "LogHDModel",
+           "HybridModel", "MODEL_CLASSES"]
 
 
 def _shape(leaf) -> tuple:
@@ -92,6 +97,7 @@ class HDModel:
         """Labels for pre-encoded queries: (B, D) -> (B,) int64."""
         raise NotImplementedError
 
+    @full_f32()
     def predict(self, x) -> torch.Tensor:
         """Encode raw features with the model's own encoder, then predict."""
         from repro_torch.hdc.encoders import encode_batched
@@ -112,6 +118,59 @@ class HDModel:
             else:
                 total += v.numel() * v.element_size()
         return total
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ConventionalModel(HDModel):
+    """One prototype per class (the paper's uncompressed baseline)."""
+
+    enc: dict
+    protos: Any                       # (C, D) f32 or QTensor
+    encoder_kind: str = "cos"
+
+    method: ClassVar[str] = "conventional"
+    stored_leaves: ClassVar[tuple] = ("protos",)
+    aux_fields: ClassVar[tuple] = ("encoder_kind",)
+
+    def predict_encoded(self, h: torch.Tensor) -> torch.Tensor:
+        """argmax_c cosine(h, H_c)."""
+        return predict_from_encoded(self.protos, h)
+
+    def model_bits(self, bits: int) -> int:
+        """C * D * bits — the uncompressed budget every fraction divides by."""
+        c, d = _shape(self.protos)
+        return c * d * bits
+
+    @property
+    def n_classes(self) -> int:
+        return _shape(self.protos)[0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SparseHDModel(HDModel):
+    """Feature-axis baseline: pruned prototypes + shared keep-mask."""
+
+    enc: dict
+    protos: Any                       # (C, D') f32 or QTensor
+    keep: Any                         # (D',) int64 retained dim indices
+    encoder_kind: str = "cos"
+
+    method: ClassVar[str] = "sparsehd"
+    stored_leaves: ClassVar[tuple] = ("protos",)
+    aux_fields: ClassVar[tuple] = ("encoder_kind",)
+
+    def predict_encoded(self, h: torch.Tensor) -> torch.Tensor:
+        """Slice queries to the kept dimensions, then nearest prototype."""
+        return predict_from_encoded(self.protos, l2_normalize(h[:, self.keep]))
+
+    def model_bits(self, bits: int) -> int:
+        """C * D' * bits for the kept values + D bits for the shared mask."""
+        c, d_kept = _shape(self.protos)
+        return c * d_kept * bits + self.enc["proj"].shape[1]
+
+    @property
+    def n_classes(self) -> int:
+        return _shape(self.protos)[0]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -153,4 +212,41 @@ class LogHDModel(HDModel):
         return _shape(self.bundles)[0]
 
 
-MODEL_CLASSES = {cls.method: cls for cls in (LogHDModel,)}
+@dataclasses.dataclass(frozen=True, eq=False)
+class HybridModel(HDModel):
+    """Class-axis + feature-axis: sparsified bundles + re-estimated profiles."""
+
+    enc: dict
+    bundles: Any                      # (n, D') f32 or QTensor
+    profiles: Any                     # (C, n) f32 or QTensor
+    keep: Any                         # (D',) int64
+    codebook: Any                     # (C, n) int32
+    metric: str = "l2"
+    encoder_kind: str = "cos"
+
+    method: ClassVar[str] = "hybrid"
+    stored_leaves: ClassVar[tuple] = ("bundles", "profiles")
+    aux_fields: ClassVar[tuple] = ("metric", "encoder_kind")
+
+    def predict_encoded(self, h: torch.Tensor) -> torch.Tensor:
+        """Slice to the kept dimensions, renormalize, then profile-decode."""
+        acts = activations(self.bundles, l2_normalize(h[:, self.keep]))
+        return decode_profiles(self.profiles, acts, self.metric)
+
+    def model_bits(self, bits: int) -> int:
+        """n*(1-S)*D + C*n value words at ``bits`` + D shared mask bits."""
+        n, d_kept = _shape(self.bundles)
+        c, _ = _shape(self.profiles)
+        return n * d_kept * bits + c * n * bits + self.enc["proj"].shape[1]
+
+    @property
+    def n_classes(self) -> int:
+        return _shape(self.profiles)[0]
+
+    @property
+    def n_bundles(self) -> int:
+        return _shape(self.bundles)[0]
+
+
+MODEL_CLASSES = {cls.method: cls for cls in
+                 (ConventionalModel, SparseHDModel, LogHDModel, HybridModel)}

@@ -1,8 +1,9 @@
 """String-keyed method registry and the uniform ``HDClassifier`` surface
-(port of ``repro.api.registry``; "loghd" is the only method so far).
+(port of ``repro.api.registry``): "conventional", "sparsehd", "loghd" and
+"hybrid".
 
-    clf = make_classifier("loghd", 26, 617, refine_epochs=0)   # on "cuda"
-    clf = clf.fit(x_train, y_train)
+    clf = make_classifier("loghd", 26, 617, refine_epochs=50)  # on "cuda"
+    clf = clf.fit(x_train, y_train)              # bundle_update steps
     labels = clf.predict(x_test)                 # encode + kernel predict
     accs = clf.sweep_under_flips(4, [0.0, 0.1], h_test, y_test)
 """
@@ -15,7 +16,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.api import _impl, dispatch
-from repro_torch.api.models import HDModel, LogHDModel
+from repro_torch.api.models import (ConventionalModel, HDModel, HybridModel,
+                                    LogHDModel, SparseHDModel)
 from repro_torch.hdc.encoders import EncoderConfig, encode_batched
 from repro_torch.kernels.common import resolve_device
 
@@ -27,8 +29,8 @@ __all__ = ["MethodSpec", "register_method", "get_method",
 class MethodSpec:
     """One registered classifier family: its model class, config factory
     ``make_config(n_classes, **kw)`` and trainer
-    ``fit(cfg, enc_cfg, x, y, *, device, enc, encoded, prototypes,
-    generator)``."""
+    ``fit(cfg, enc_cfg, x, y, *, device, enc, encoded, prototypes, base,
+    generator, perms)``."""
     name: str
     model_cls: type
     make_config: Callable[..., Any]
@@ -77,12 +79,16 @@ class HDClassifier:
         return self.model
 
     def fit(self, x, y, *, enc: Optional[dict] = None, encoded=None,
-            prototypes=None,
-            generator: Optional[torch.Generator] = None) -> "HDClassifier":
-        """Train on this classifier's device."""
+            prototypes=None, base: Optional[HDModel] = None,
+            generator: Optional[torch.Generator] = None,
+            perms=None) -> "HDClassifier":
+        """Train on this classifier's device.  ``generator`` draws the
+        encoder's projection, ``perms`` injects the (epochs, N) example
+        orders of the Eq. 9 refinement (loghd, hybrid)."""
         model = self.spec.fit(self.cfg, self.enc_cfg, x, y,
                               device=self.device, enc=enc, encoded=encoded,
-                              prototypes=prototypes, generator=generator)
+                              prototypes=prototypes, base=base,
+                              generator=generator, perms=perms)
         return dataclasses.replace(self, model=model)
 
     def with_model(self, model: HDModel) -> "HDClassifier":
@@ -127,7 +133,8 @@ def make_classifier(name: str, n_classes: int,
     ``device=None`` means "cuda", and raises when no CUDA device is
     available; pass ``device="cpu"`` to run the plain versions on the CPU.
     ``method_kw`` goes to the family's config (e.g. ``k=2,
-    extra_bundles=5, refine_epochs=0`` for loghd)."""
+    extra_bundles=5, refine_epochs=50`` for loghd, ``sparsity=0.6`` for
+    sparsehd)."""
     device = resolve_device(device)
     spec = get_method(name)
     if enc_cfg is None:
@@ -138,10 +145,40 @@ def make_classifier(name: str, n_classes: int,
                         enc_cfg=enc_cfg, device=device)
 
 
+def _conventional_config(n_classes: int, **kw):
+    from repro_torch.hdc.conventional import ConventionalConfig
+    return ConventionalConfig(n_classes=n_classes, **kw)
+
+
+def _sparsehd_config(n_classes: int, **kw):
+    from repro_torch.core.sparsehd import SparseHDConfig
+    return SparseHDConfig(n_classes=n_classes, **kw)
+
+
 def _loghd_config(n_classes: int, **kw):
     from repro_torch.core.loghd import LogHDConfig
     return LogHDConfig(n_classes=n_classes, **kw)
 
 
+def _hybrid_config(n_classes: int, *, sparsity: float = 0.5,
+                   saliency: str = "spread", loghd=None, **loghd_kw):
+    from repro_torch.core.hybrid import HybridConfig
+    from repro_torch.core.loghd import LogHDConfig
+    if loghd is not None and loghd_kw:
+        raise ValueError(
+            f"pass either a full loghd config or loghd kwargs, not both "
+            f"(got loghd=... and {sorted(loghd_kw)})")
+    lcfg = loghd if loghd is not None else LogHDConfig(n_classes=n_classes,
+                                                      **loghd_kw)
+    return HybridConfig(loghd=lcfg, sparsity=sparsity, saliency=saliency)
+
+
+register_method(MethodSpec("conventional", ConventionalModel,
+                           _conventional_config,
+                           _impl.fit_conventional_model))
+register_method(MethodSpec("sparsehd", SparseHDModel, _sparsehd_config,
+                           _impl.fit_sparsehd_model))
 register_method(MethodSpec("loghd", LogHDModel, _loghd_config,
                            _impl.fit_loghd_model))
+register_method(MethodSpec("hybrid", HybridModel, _hybrid_config,
+                           _impl.fit_hybrid_model))

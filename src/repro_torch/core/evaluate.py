@@ -17,6 +17,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.precision import full_f32
+
 INT32_MAX = (1 << 31) - 1
 
 
@@ -28,6 +30,7 @@ def trial_seeds(generator: torch.Generator, n_trials: int,
                          generator=generator).tolist()
 
 
+@full_f32()
 def sweep_under_flips(model, bits: int, p_grid: Sequence[float], h_test,
                       y_test, *, n_trials: int = 3, scope: str = "all",
                       predict_encoded: Optional[Callable] = None,
@@ -77,6 +80,7 @@ def evaluate_under_flips(model, bits: int, p: float, h_test, y_test, *,
                                            **kw)))
 
 
+@full_f32()
 def accuracy(model, h_test, y_test) -> float:
     """Clean accuracy of a typed model through its plain predict."""
     h = torch.as_tensor(h_test)

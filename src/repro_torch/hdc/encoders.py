@@ -10,9 +10,7 @@ removed, and the result is normalised again, as in the JAX package.
 
 The projection ``x @ proj`` is a plain large matrix product and stays
 ``torch.matmul``, as the JAX package leaves it to XLA.  It runs in full
-float32: TF32 is switched off for CUDA matmuls when this module is used
-(``_no_tf32``), because TF32 keeps about three decimal digits and the port
-is held against the reference at float32 tolerances.
+float32, under ``repro_torch.precision.full_f32``.
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ from typing import Literal, Optional
 import torch
 
 from repro_torch.hdc.conventional import l2_normalize
+from repro_torch.precision import full_f32
 
 EncoderKind = Literal["cos", "rp", "rp_sign"]
 
@@ -35,10 +34,6 @@ class EncoderConfig:
     kind: EncoderKind = "cos"
     bandwidth: float = 2.0       # z = xW / bandwidth
     seed: int = 0
-
-
-def _no_tf32() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def init_encoder(cfg: EncoderConfig, *, device,
@@ -66,10 +61,10 @@ def init_encoder(cfg: EncoderConfig, *, device,
             "center": torch.zeros((cfg.dim,), device=device)}
 
 
+@full_f32()
 def encode(params: dict, x: torch.Tensor, kind: EncoderKind = "cos"
            ) -> torch.Tensor:
     """phi(x): (..., F) -> (..., D), L2-normalized float32."""
-    _no_tf32()
     x = torch.as_tensor(x, dtype=torch.float32, device=params["proj"].device)
     z = x @ params["proj"]
     if kind == "cos":

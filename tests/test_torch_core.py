@@ -44,9 +44,10 @@ def test_load_dataset_page_byte_identical():
     assert dataclasses.asdict(got[4]) == dataclasses.asdict(want[4])
 
 
-def _check_quantized(got, want, w):
+def _check_quantized(got, want, w, ulps=2):
     """Codes bitwise equal at the reference's scale; the port's own scale
-    within 2 ulp of it (its mean / std sum in another order than XLA's);
+    within `ulps` ulp of it (see ``xla_sum`` for where its sums can run in
+    another order than XLA's);
     and where the port's own codes differ, only at elements that sit on a
     rounding boundary, one code away."""
     scale = np.asarray(want.scale)
@@ -55,7 +56,7 @@ def _check_quantized(got, want, w):
         quantize.codes_for_scale(_t(w), _t(scale), want.bits).numpy(),
         np.asarray(want.codes))
     ulp = np.spacing(np.abs(scale))
-    assert abs(float(got.scale) - float(scale)) <= 2 * ulp
+    assert abs(float(got.scale) - float(scale)) <= ulps * ulp
     diff = got.codes.numpy().astype(int) - np.asarray(want.codes).astype(int)
     if diff.any():
         assert np.abs(diff).max() == 1 and want.bits > 1
@@ -76,14 +77,31 @@ def test_quantize_matches_reference(bits, shape, seed):
 
 
 def test_quantize_seed_sweep_differs_only_at_rounding_boundaries():
-    """Many inputs: the scale differs by an ulp in a good share of them,
-    and a code can then move at an exact rounding boundary."""
-    for seed in range(12):
-        w = np.random.default_rng(seed).standard_normal(
-            (10, 2000)).astype(np.float32)
-        for bits in (2, 4, 6, 8):
-            _check_quantized(quantize.quantize(_t(w), bits),
-                             jax_quantize(jnp.asarray(w), bits), w)
+    """The 1,280-case sweep (40 seeds x 4 shapes x 8 widths).  Where XLA
+    rewrites the reduction into windows (a dimension longer than 32) the
+    port's scale is the reference's, bit for bit.  A leaf with every
+    dimension at most 32 is reduced by one small fused loop that XLA's LLVM
+    back end vectorizes in an order ``xla_sum`` does not reproduce: there
+    the standard deviation may sit an ulp away, which the clip factor turns
+    into up to 3 ulp of the scale (76 of its 320 cases differ when
+    measured), and a code may then move at an exact rounding boundary."""
+    small_differs = 0
+    for shape in [(5, 512), (26, 10), (3000,), (10, 10000)]:
+        for seed in range(40):
+            w = np.random.default_rng(seed).standard_normal(shape).astype(
+                np.float32)
+            for bits in range(1, 9):
+                got = quantize.quantize(_t(w), bits)
+                want = jax_quantize(jnp.asarray(w), bits)
+                if max(shape) > 32:
+                    assert float(got.scale) == float(want.scale), (shape, seed,
+                                                                   bits)
+                    np.testing.assert_array_equal(got.codes.numpy(),
+                                                  np.asarray(want.codes))
+                    continue
+                small_differs += float(got.scale) != float(want.scale)
+                _check_quantized(got, want, w, ulps=3)
+    assert small_differs <= 80
 
 
 def test_quantize_rejects_bad_bits_and_skips_in_tree():

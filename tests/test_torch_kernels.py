@@ -13,6 +13,8 @@ import torch
 
 from repro.kernels.bundle_sim.ops import bundle_similarity as jax_bundle_sim
 from repro.kernels.bundle_sim.ref import bundle_similarity_ref as jax_bs_ref
+from repro.kernels.bundle_update.ops import bundle_update as jax_bundle_update
+from repro.kernels.bundle_update.ref import bundle_update_ref as jax_bu_ref
 from repro.kernels.flip_corrupt.ops import flip_corrupt as jax_flip_corrupt
 from repro.kernels.flip_corrupt.ref import flip_corrupt_ref as jax_fc_ref
 from repro.kernels.profile_decode.ops import \
@@ -21,6 +23,7 @@ from repro.kernels.profile_decode.ref import \
     profile_decode_scores_ref as jax_pd_ref
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.bundle_sim import bundle_similarity
+from repro_torch.kernels.bundle_update import bundle_update, bundle_update_ref
 from repro_torch.kernels.flip_corrupt import flip_corrupt, flip_corrupt_ref
 from repro_torch.kernels.flip_corrupt.ref import _mul32, flip_threshold
 from repro_torch.kernels.profile_decode import profile_decode_scores
@@ -75,6 +78,38 @@ def test_profile_decode_plain_matches_jax(b, n, c, dtype):
     if dtype == "float32":
         np.testing.assert_array_equal(got.argmax(-1).numpy(),
                                       pallas.argmax(-1))
+
+
+# the JAX package's bundle_update shapes (tests/test_kernels.py BU_SHAPES)
+@pytest.mark.parametrize("n,b,d", [(5, 32, 512), (26, 100, 1000), (3, 7, 130),
+                                   (128, 64, 2048), (26, 64, 10000)])
+def test_bundle_update_plain_matches_jax(n, b, d):
+    rng = np.random.default_rng(n + b + d)
+    m = rng.standard_normal((n, d)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=-1, keepdims=True)
+    c = rng.standard_normal((b, n)).astype(np.float32)
+    h = rng.standard_normal((b, d)).astype(np.float32)
+    got = bundle_update(torch.from_numpy(m), torch.from_numpy(c),
+                        torch.from_numpy(h), 0.01)
+    assert got.shape == (n, d) and got.dtype == torch.float32
+    args = (jnp.asarray(m), jnp.asarray(c), jnp.asarray(h), 0.01)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_bu_ref(*args)),
+                               **tol)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_bundle_update(*args, interpret=True)),
+        **tol)
+    # rows come back unit-norm (the normalisation epilogue)
+    np.testing.assert_allclose(torch.linalg.vector_norm(got, dim=-1).numpy(),
+                               np.ones(n), rtol=1e-5)
+
+
+def test_bundle_update_wrapper_is_plain_ref_on_cpu():
+    rng = np.random.default_rng(9)
+    m, c, h = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((4, 40), (6, 4), (6, 40)))
+    assert torch.equal(bundle_update(m, c, h, 0.3),
+                       bundle_update_ref(m, c, h, 0.3))
 
 
 def _codes(rng, shape, bits):
@@ -138,6 +173,7 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     profile_decode_scores(acts, torch.randn(5, 3))
     flip_corrupt(torch.zeros(10, dtype=torch.int8), torch.tensor(1.0), 4, 0.5,
                  3)
+    bundle_update(m, torch.randn(4, 3), h, 0.1)
     assert sum(common.launches.values()) == 0
     assert not common.on_card(h, m)
 
@@ -166,7 +202,8 @@ def test_plain_flip_corrupt_is_plain_ref():
 
 def test_build_names_every_source_by_hash():
     names = _build.kernel_names()
-    assert names == ["bundle_sim", "flip_corrupt", "profile_decode"]
+    assert names == ["bundle_sim", "bundle_update", "flip_corrupt",
+                     "profile_decode"]
     for name in names:
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR

@@ -259,7 +259,7 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 def test_unported_options_raise():
     x, y = np.zeros((4, 10), np.float32), np.arange(4) % 2
-    for kw in (dict(refine_epochs=3), dict(refine_epochs=0, class_sharding=2),
+    for kw in (dict(refine_epochs=0, class_sharding=2),
                dict(refine_epochs=0, data_sharding=2)):
         clf = make_classifier("loghd", 2, 10, dim=64, device="cpu", **kw)
         with pytest.raises(NotImplementedError):
