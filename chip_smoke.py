@@ -5,10 +5,11 @@ Run from the root of a checkout, with one card visible:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each kernel against its plain PyTorch version on the card, then runs
-two paths through the public entry points at the paper's full width, the
-isolet surrogate (F=617, C=26, D=10,000, 6,238 train / 1,559 test rows):
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+into ``build/repro_torch/``, holds each kernel against its plain PyTorch
+version on the card, then runs three paths through the public entry points
+at the paper's full width, the isolet surrogate (F=617, C=26, D=10,000,
+6,238 train / 1,559 test rows):
 
 1. LogHD without refinement (``make_classifier("loghd", ..., k=2,
    extra_bundles=5, refine_epochs=0)``) -> fit -> predict -> the 1-bit and
@@ -18,25 +19,36 @@ isolet surrogate (F=617, C=26, D=10,000, 6,238 train / 1,559 test rows):
    Eq. 9 epochs), SparseHD (sparsity 0.6, 30 OnlineHD epochs), hybrid
    (n=20, sparsity 0.48, 50 epochs) and conventional (10 OnlineHD epochs),
    each fitted with every minibatch through ``bundle_update``, predicted,
-   and swept at 1 bit with the hypervector scope.
+   and swept at 1 bit with the hypervector scope;
+3. serving: path 1's LogHD model and path 2's conventional model saved
+   with ``save_model`` and loaded with ``load_model``, each registered in a
+   ``ClassifierService`` at f32 and at int8 residency (max_batch 64, the
+   bucket ladder 1, 2, ..., 64), warmed up, then a closed loop over all
+   1,559 test rows as raw features per served model (every cycle encodes
+   through ``hdc_encode``), an open-loop Poisson run of 512 requests at
+   half the closed-loop rate, the encoded-input form once, and
+   ``serve_forever`` followed by ``shutdown(drain=True)``.
 
 It checks each path's launch counts, that fits repeat bit for bit (the
 LogHD repeat with TF32 turned on globally, watching that every matmul of
 the fit runs in full float32), that kernel and plain predict and training
-agree, and that each sweep's p=0 row equals the clean accuracy of the
-quantized model; then it times every kernel, its plain version and a
-library call with CUDA events.
+agree, that each sweep's p=0 row equals the clean accuracy of the
+quantized model, that an encoded row has the same bits at B = 1, 64 and
+1,559, and that served labels equal ``predict`` of the loaded model (of
+its int8 quantization for the int8 residency); then it times every
+kernel, its plain version and a library call with CUDA events.
 
-Output: a JSON line with one entry per kernel, the card's name and power
-limit as ``nvidia-smi`` reports them, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
-code is not 0; without a CUDA device, or outside a checkout, it exits with
-an error before printing any result.
+Output: the serving rates and latencies, a JSON line with one entry per
+kernel, the card's name and power limit as ``nvidia-smi`` reports them,
+and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
+raises, so the exit code is not 0; without a CUDA device, or outside a
+checkout, it exits with an error before printing any result.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,6 +60,7 @@ SRC = ROOT / "src"
 
 # Tolerances of the JAX package's own kernel tests (tests/test_kernels.py).
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ENC_TOL = dict(rtol=2e-4, atol=2e-5)
 P_GRID = [0.0, 0.05, 0.1, 0.2, 0.3, 0.4]
 N_TRIALS = 3
 KERNELS = {
@@ -59,7 +72,13 @@ KERNELS = {
                      "src/repro/kernels/flip_corrupt/flip_corrupt.py:116"),
     "bundle_update": ("src/repro_torch/kernels/csrc/bundle_update.cu",
                       "src/repro/kernels/bundle_update/bundle_update.py:74"),
+    "hdc_encode": ("src/repro_torch/kernels/csrc/hdc_encode.cu",
+                   "src/repro/kernels/hdc_encode/hdc_encode.py:70"),
 }
+# the serving phase's checkpoints (under the gitignored build directory)
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+MAX_BATCH = 64
+N_OPEN_LOOP = 512
 
 
 def log(*args) -> None:
@@ -231,7 +250,64 @@ def phase_kernels(torch, dev) -> dict:
                                    atol=tol)
         if (n, b, d) == (10, 64, 10000):
             errs["bundle_update"] = err
+    errs["hdc_encode"] = check_hdc_encode(torch, dev, g)
     return errs
+
+
+def enc_inputs(torch, dev, g, b: int, f: int, d: int):
+    """x (B, F) standard normal, W (F, D) as the encoder draws it (N(0, 1)
+    over sqrt(F) times bandwidth 2), bias in [0, 2 pi), a small center."""
+    import math
+    x = torch.randn((b, f), generator=g, device=dev)
+    w = torch.randn((f, d), generator=g, device=dev) / (math.sqrt(f) * 2.0)
+    bias = torch.rand((d,), generator=g, device=dev) * (2.0 * math.pi)
+    center = torch.randn((d,), generator=g, device=dev) * 0.01
+    return x, w, bias, center
+
+
+def check_hdc_encode(torch, dev, g) -> float:
+    """hdc_encode against its plain version at the serving, predict and
+    ragged shapes, every kind, rtol 2e-4 / atol 2e-5 (the JAX package's
+    own bound).  For rp_sign an element may differ only where |x W| is
+    within rounding of 0 (the two sum in different orders, and the sign of
+    such a z is not defined by the inputs); those are counted and must be
+    rare.  Returns the max abs error at the 64-row cos shape."""
+    from repro_torch.kernels.hdc_encode import hdc_encode, hdc_encode_plain
+    from repro_torch.precision import full_f32
+    err64 = None
+    for (b, f, d) in [(1, 617, 10000), (64, 617, 10000), (4096, 617, 10000),
+                      (100, 75, 2000)]:
+        x, w, bias, center = enc_inputs(torch, dev, g, b, f, d)
+        for kind in ("cos", "rp", "rp_sign"):
+            got = hdc_encode(x, w, bias, center, kind)
+            with full_f32():
+                want = hdc_encode_plain(x, w, bias, center, kind)
+                z = x @ w
+            torch.cuda.synchronize()
+            check(got.shape == (b, d) and got.dtype == torch.float32,
+                  "hdc_encode output shape / dtype")
+            check(bool(torch.isfinite(got).all()), "hdc_encode not finite")
+            close = torch.isclose(got, want, **ENC_TOL)
+            note = ""
+            if kind == "rp_sign":
+                off = ~close
+                n_off = int(off.sum())
+                check(bool((z[off].abs() < 1e-5).all()),
+                      "hdc_encode rp_sign differs where |xW| >= 1e-5")
+                check(n_off <= max(1, got.numel() // 100_000),
+                      f"hdc_encode rp_sign differs in {n_off} elements")
+                close = close | off
+                note = f", {n_off} signs of |xW| < 1e-5 differ"
+                err = max_err(got[~off], want[~off])
+            else:
+                err = max_err(got, want)
+            log(f"hdc_encode     ({b}, {f}, {d}) {kind}: max_abs_err "
+                f"{err:.3e}{note}")
+            check(bool(close.all()), f"hdc_encode ({b}, {f}, {d}) {kind} "
+                  f"outside rtol 2e-4 / atol 2e-5")
+            if (b, f, d, kind) == (64, 617, 10000, "cos"):
+                err64 = err
+    return err64
 
 
 def phase_main_path(torch, dev) -> dict:
@@ -283,6 +359,11 @@ def phase_main_path(torch, dev) -> dict:
           f"clean accuracy {acc} is below 0.5")
     for name in ("bundle_sim", "profile_decode", "flip_corrupt"):
         check(launches.get(name, 0) > 0, f"{name} never launched on the path")
+    # the fit's encoder calibration (4,096-row batches), predict, encode
+    want_enc = -(-len(x_tr) // 4096) + 2
+    check(launches.get("hdc_encode", 0) == want_enc,
+          f"hdc_encode launched {launches.get('hdc_encode', 0)} times on "
+          f"the path, not {want_enc}")
     plain = dispatch.predict_encoded(model, h_te, use_kernels=False)
     agree = float((plain == labels).float().mean())
     log(f"clean accuracy {acc:.4f}; kernel vs plain labels agree on "
@@ -314,8 +395,8 @@ def phase_main_path(torch, dev) -> dict:
     log(f"wall: fit {fit_s:.3f} s, predict {predict_s:.3f} s "
         f"(encode + kernels), sweeps {sweep_s:.3f} s")
     return {"launches": launches, "model": model, "h_te": h_te,
-            "acc": acc, "fit_s": fit_s, "predict_s": predict_s,
-            "sweep_s": sweep_s}
+            "x_te": x_te, "acc": acc, "fit_s": fit_s,
+            "predict_s": predict_s, "sweep_s": sweep_s}
 
 
 class MatmulWatch:
@@ -379,8 +460,16 @@ def phase_matched_memory(torch, dev) -> dict:
 
     x_tr, y_tr, x_te, y_te, spec = load_dataset("isolet")
     enc_cfg = EncoderConfig(spec.n_features, 10_000, "cos")
+    torch.cuda.synchronize()
+    common.reset_launches()
     enc, h_tr = fit_encoder(enc_cfg, x_tr, device=dev)
     h_te = encode_batched(enc, x_te, "cos")
+    torch.cuda.synchronize()
+    enc_launches = dict(common.launches)
+    want_enc = -(-len(x_tr) // 4096) + 1
+    check(enc_launches.get("hdc_encode", 0) == want_enc,
+          f"shared encoder: hdc_encode launched "
+          f"{enc_launches.get('hdc_encode', 0)} times, not {want_enc}")
     y_tr_dev = torch.as_tensor(y_tr, device=dev).long()
     y_dev = torch.as_tensor(y_te, device=dev)
     protos = class_prototypes(h_tr, y_tr_dev, spec.n_classes)
@@ -498,7 +587,170 @@ def phase_matched_memory(torch, dev) -> dict:
         f"{cfg.refine_epochs}; labels agree on {agree50:.5f}")
     check(agree50 >= 0.999, f"refinement kernel vs plain labels agree on "
           f"only {agree50}")
-    return dict(families=out, h_tr=h_tr, y_tr=y_tr_dev)
+    return dict(families=out, h_tr=h_tr, y_tr=y_tr_dev,
+                enc_launches=enc_launches)
+
+
+def served_labels(svc, name: str, rows, encoded: bool = False):
+    """Submit every row to `name`, drain, and return the labels as a
+    tensor, with the wall seconds and the cycles it took."""
+    c0 = svc.queue.cycles
+    t0 = time.perf_counter()
+    futs = [svc.submit(name, r, encoded=encoded) for r in rows]
+    svc.run_until_drained()
+    got = [f.result(timeout=120.0) for f in futs]
+    return got, time.perf_counter() - t0, svc.queue.cycles - c0
+
+
+def phase_serving(torch, dev, main: dict, mm: dict) -> dict:
+    """Checkpoint -> load -> ClassifierService at f32 and int8 residency
+    -> warmup -> closed loop, open loop, the encoded form and
+    serve_forever, with launch counting, then the checks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import dispatch, load_model, save_model
+    from repro_torch.data.synth import load_dataset
+    from repro_torch.hdc.encoders import encode
+    from repro_torch.kernels import common
+    from repro_torch.serving import (ClassifierService, closed_loop,
+                                     open_loop_poisson)
+
+    _, _, x_te, _, _ = load_dataset("isolet")
+    trained = {"loghd": main["model"],
+               "conventional": mm["families"]["conventional"]["clf"].model}
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    loaded = {}
+    for name, model in trained.items():
+        save_model(str(CKPT_DIR / name), 0, model)
+        loaded[name] = load_model(str(CKPT_DIR / name))
+    # the references, computed before any count is reset
+    want, rt_equal = {}, {}
+    for name, model in loaded.items():
+        want[f"{name}_f32"] = model.predict(x_te)
+        want[f"{name}_int8"] = model.quantized(8).materialized().predict(x_te)
+        rt_equal[name] = torch.equal(trained[name].predict(x_te),
+                                     want[f"{name}_f32"])
+    enc = loaded["loghd"].enc
+    full = encode(enc, x_te)
+    b64 = encode(enc, x_te[:64])
+    b1 = torch.cat([encode(enc, x_te[i:i + 1]) for i in range(64)])
+    h_te = full.cpu().numpy()
+    want_enc = dispatch.predict_encoded(loaded["loghd"], full)
+    torch.cuda.synchronize()
+
+    svc = ClassifierService(max_batch=MAX_BATCH)
+    for name, model in loaded.items():
+        svc.register(f"{name}_f32", model)
+        svc.register(f"{name}_int8", model, quantize_bits=8)
+    served = svc.served_models()
+    t0 = time.perf_counter()
+    pairs = svc.warmup()
+    warmup_s = time.perf_counter() - t0
+    misses0 = svc.stats()["bucket_cache"]["misses"]
+    log(f"serving: {len(served)} models {served}, warmup of {pairs} "
+        f"(model, bucket) pairs {warmup_s:.3f} s, buckets "
+        f"{svc.bucket_cache.buckets}")
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    cycles0 = svc.queue.cycles
+    labels, closed, opened = {}, {}, {}
+    for name in served:
+        got, wall, cyc = served_labels(svc, name, x_te)
+        labels[name] = (got, wall, cyc)
+        closed[name] = closed_loop(svc, name, x_te)
+    padding = {}                # pad rows, admitted rows, cycles per run
+    for name in served:
+        before = (svc.padded_rows, svc.queue.admitted, svc.queue.cycles)
+        opened[name] = open_loop_poisson(
+            svc, name, x_te, rate_rps=closed[name].rps / 2,
+            n_requests=N_OPEN_LOOP, seed=0)
+        padding[name] = (svc.padded_rows - before[0],
+                         svc.queue.admitted - before[1],
+                         svc.queue.cycles - before[2])
+    got_enc, _, enc_cycles = served_labels(svc, "loghd_f32", h_te,
+                                           encoded=True)
+    svc.serve_forever()
+    futs = [svc.submit("loghd_f32", r) for r in x_te[:256]]
+    got_bg = [f.result(timeout=120.0) for f in futs]
+    svc.shutdown(drain=True, timeout=120.0)
+    torch.cuda.synchronize()
+    launches = dict(common.launches)
+    cycles = svc.queue.cycles - cycles0
+    stats = svc.stats()
+    log(f"serve path launches: {launches}; {cycles} cycles, "
+        f"{enc_cycles} of them encoded-input")
+
+    # the device's share of one closed loop (profiled apart, not counted)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        closed_loop(svc, "loghd_f32", x_te)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+
+    # checks, after the counts were read
+    check(not svc.serving(), "serve_forever thread still running")
+    check(all(torch.equal(full[:64], x) for x in (b64, b1)),
+          "an encoded row's bits depend on the batch (B = 1559, 64, 1)")
+    for name in trained:
+        check(rt_equal[name], f"{name}: labels differ after the checkpoint "
+              f"round trip")
+        ratio = svc.model_bytes(f"{name}_int8") / svc.model_bytes(
+            f"{name}_f32")
+        log(f"{name}: int8 residency holds {svc.model_bytes(name + '_int8')}"
+            f" bytes, {ratio:.4f} of f32's {svc.model_bytes(name + '_f32')}")
+        check(ratio <= 0.3, f"{name}: int8 bytes are {ratio:.3f} of f32")
+    for name in served:
+        got, wall, cyc = labels[name]
+        ref = want[name].cpu().tolist()
+        n_eq = sum(a == b for a, b in zip(got, ref))
+        log(f"{name}: served labels equal predict on {n_eq} of {len(ref)} "
+            f"rows ({cyc} cycles, {len(ref) / wall:.1f} requests/s)")
+        check(n_eq == len(ref), f"{name}: served labels differ from predict "
+              f"on {len(ref) - n_eq} rows")
+    check(got_enc == want_enc.cpu().tolist(),
+          "encoded-input labels differ from predict_encoded")
+    check(got_bg == want["loghd_f32"][:256].cpu().tolist(),
+          "serve_forever labels differ from predict")
+    check(stats["bucket_cache"]["misses"] == misses0,
+          f"bucket misses grew after warmup: {misses0} -> "
+          f"{stats['bucket_cache']['misses']}")
+    check(stats["errors"] == 0 and stats["queued"] == 0,
+          f"service errors {stats['errors']}, queued {stats['queued']}")
+    raw_cycles = cycles - enc_cycles
+    check(launches.get("hdc_encode", 0) == raw_cycles,
+          f"hdc_encode launched {launches.get('hdc_encode', 0)} times, not "
+          f"once per raw-feature cycle ({raw_cycles})")
+    for kname in ("bundle_sim", "profile_decode"):
+        check(launches.get(kname, 0) > 0, f"{kname} never launched serving")
+    for name in served:
+        c, o = closed[name], opened[name]
+        log(f"serve {name:<17} closed loop: {c.rps:.1f} requests/s, p50 "
+            f"{c.p50_ms:.3f} ms, p99 {c.p99_ms:.3f} ms, {c.n_requests} "
+            f"requests; open loop at {closed[name].rps / 2:.1f}/s: "
+            f"{o.rps:.1f} requests/s, p50 {o.p50_ms:.3f} ms, p99 "
+            f"{o.p99_ms:.3f} ms, {o.n_requests} requests, "
+            f"{o.n_rejected} rejected")
+        pad, adm, cyc = padding[name]
+        log(f"serve {name:<17} open loop padding: {pad} pad rows over "
+            f"{adm} admitted rows ({pad / max(adm, 1):.4f}) in {cyc} "
+            f"cycles, {adm / max(cyc, 1):.2f} rows a cycle")
+    log(f"serve: {cycles} cycles ({raw_cycles} raw-feature), "
+        f"{stats['admitted']} requests admitted, {stats['padded_rows']} "
+        f"rows padded before encode, bucket cache "
+        f"{stats['bucket_cache']}")
+    log(f"serve loghd_f32 closed loop under the profiler: wall "
+        f"{prof_wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms, so the "
+        f"device idles {1 - busy_ms / (prof_wall * 1e3):.1%}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:90]}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return dict(launches=launches, closed=closed, opened=opened,
+                cycles=cycles, raw_cycles=raw_cycles)
 
 
 def phase_fit_profile(torch, mm: dict) -> dict:
@@ -568,6 +820,7 @@ def phase_times(torch, main: dict, mm: dict, rates: dict) -> dict:
                                                    bundle_update_ref)
     from repro_torch.kernels.flip_corrupt import (flip_corrupt,
                                                   flip_corrupt_ref)
+    from repro_torch.kernels.hdc_encode import hdc_encode, hdc_encode_plain
     from repro_torch.kernels.profile_decode import (profile_decode_scores,
                                                     profile_decode_scores_ref)
     model, h = main["model"], main["h_te"].contiguous()
@@ -621,6 +874,25 @@ def phase_times(torch, main: dict, mm: dict, rates: dict) -> dict:
             bytes=(2 * nu * du + bu * du + bu * nu) * 4,
             ops=2 * nu * bu * du + 3 * nu * du, op_type="float32"),
     }
+    # the encoder of path 1's model on a 64-row service bucket of test rows
+    enc = model.enc
+    proj, ebias, ecenter = (enc[k].contiguous()
+                            for k in ("proj", "bias", "center"))
+    x_dev = torch.as_tensor(main["x_te"], device=proj.device)
+
+    def enc_case(rows: int) -> dict:
+        xb = x_dev[:rows].contiguous()
+        f, d_enc = proj.shape
+        return dict(
+            kernel=lambda: hdc_encode(xb, proj, ebias, ecenter, "cos"),
+            plain=lambda: hdc_encode_plain(xb, proj, ebias, ecenter, "cos"),
+            library=lambda: torch.cos(torch.addmm(ebias, xb, proj))
+            * torch.sin(xb @ proj),
+            gemm=lambda: xb @ proj,
+            bytes=(rows * f + f * d_enc + rows * d_enc + 2 * d_enc) * 4,
+            ops=2 * rows * f * d_enc, op_type="float32")
+
+    cases["hdc_encode"] = enc_case(MAX_BATCH)
     out = {}
     for name, cs in cases.items():
         t = {}
@@ -639,6 +911,18 @@ def phase_times(torch, main: dict, mm: dict, rates: dict) -> dict:
             f"({cs['bytes']} B, {cs['ops']} ops); per call, CUDA events | "
             f"profiler device time: " + "; ".join(
                 f"{role} {t[role][0]} | {t[role][1]} ms" for role in t))
+    # hdc_encode at one row (a lone request), a bucket and the predict
+    # batch, beside cuBLAS's x @ W alone (the product without the cos / sin
+    # epilogue and the normalisations)
+    for rows in (1, MAX_BATCH, 1559):
+        cs = enc_case(rows)
+        t = {role: (time_ms(torch, cs[role]), device_ms(torch, cs[role]))
+             for role in ("kernel", "plain", "library", "gemm")}
+        b_ms, b_by = bound_ms(rates, cs["bytes"], cs["ops"], cs["op_type"])
+        log(f"time hdc_encode B={rows:<5} bound {b_ms:.5f} ms by {b_by} "
+            f"({cs['bytes']} B, {cs['ops']} flop); CUDA events | profiler "
+            f"device ms: " + "; ".join(
+                f"{role} {t[role][0]} | {t[role][1]}" for role in t))
     return out
 
 
@@ -672,14 +956,18 @@ def main() -> int:
     errs = phase_kernels(torch, dev)
     main_run = phase_main_path(torch, dev)
     mm = phase_matched_memory(torch, dev)
+    serve = phase_serving(torch, dev, main_run, mm)
     phase_fit_profile(torch, mm)
     times = phase_times(torch, main_run, mm, rates)
 
-    # launches of every path's run: slice 1's LogHD path and each family's
-    # fit -> predict -> sweep of the matched-memory phase
-    by_path = {"loghd_refine_off": main_run["launches"]}
+    # launches of every path's run: slice 1's LogHD path, the shared
+    # encoder and each family's fit -> predict -> sweep of the
+    # matched-memory phase, and the serving phase
+    by_path = {"loghd_refine_off": main_run["launches"],
+               "matched_memory_encoder": mm["enc_launches"]}
     by_path.update({f"matched_memory_{name}": r["launches"]
                     for name, r in mm["families"].items()})
+    by_path["serve"] = serve["launches"]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]

@@ -9,7 +9,8 @@ Training: ``fused_bundle_update`` is the minibatch step of the fit engine,
 through ``bundle_update``.  Corrupt: each QTensor leaf goes through
 ``flip_corrupt`` (the kernel for CUDA tensors, its bit-exact plain version
 for CPU tensors).  PyTorch runs eagerly, so no compiled-executable cache is
-needed.
+needed; ``clear_cache`` still resets every cache a later layer registers
+(the serving layer's bucket bookkeeping).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from repro_torch.kernels.profile_decode.ops import profile_decode_scores
 from repro_torch.precision import full_f32
 
 __all__ = ["predict_fn", "predict_encoded", "fused_bundle_update",
-           "corrupt_dequant", "corrupt_materialize"]
+           "corrupt_dequant", "corrupt_materialize", "register_cache_clearer",
+           "clear_cache"]
 
 
 def _activations(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -134,3 +136,25 @@ def corrupt_materialize(model: HDModel, p: float, seeds: Sequence[int],
             out[name] = leaf
     out["enc"] = model.enc
     return type(model).from_dict(out, **model.aux())
+
+
+# Layers above this one (``repro_torch.serving``'s bucket caches) register
+# their clearers here, so that clear_cache() stays the one invalidation
+# entry point without dispatch importing upward.
+_EXTRA_CACHE_CLEARERS: list = []
+
+
+def register_cache_clearer(fn: Callable[[], None]) -> Callable[[], None]:
+    """Register a zero-argument callback that every ``clear_cache()`` runs."""
+    if fn not in _EXTRA_CACHE_CLEARERS:
+        _EXTRA_CACHE_CLEARERS.append(fn)
+    return fn
+
+
+def clear_cache() -> None:
+    """Reset every registered cache in the process: the one invalidation
+    entry point.  The port compiles no executables, so what it resets is
+    the bookkeeping of the layers that registered (the serving layer's
+    shape-bucket hit/miss counts)."""
+    for fn in list(_EXTRA_CACHE_CLEARERS):
+        fn()

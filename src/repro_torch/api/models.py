@@ -65,6 +65,17 @@ class HDModel:
     def replace(self, **updates) -> "HDModel":
         return dataclasses.replace(self, **updates)
 
+    def to(self, device) -> "HDModel":
+        """The model with every tensor leaf (encoder, QTensor codes and
+        scales included) on `device`."""
+        def move(v):
+            if isinstance(v, QTensor):
+                return QTensor(v.codes.to(device), v.scale.to(device), v.bits)
+            if isinstance(v, dict):
+                return {k: move(a) for k, a in v.items()}
+            return v.to(device)
+        return self.replace(**{k: move(v) for k, v in self.to_dict().items()})
+
     # ------------------------------------------- robustness pipeline ------
     def quantized(self, bits: int) -> "HDModel":
         """Post-training quantize the stored leaves to `bits`-bit codes."""

@@ -1,0 +1,3 @@
+from repro_torch.checkpoint.ckpt import (LeafSpec, latest_step,
+                                         read_scalar_leaves,
+                                         restore_checkpoint, save_checkpoint)

@@ -8,9 +8,12 @@
 Outputs are L2-normalised, the train-calibrated DC component ``center`` is
 removed, and the result is normalised again, as in the JAX package.
 
-The projection ``x @ proj`` is a plain large matrix product and stays
-``torch.matmul``, as the JAX package leaves it to XLA.  It runs in full
-float32, under ``repro_torch.precision.full_f32``.
+``encode`` goes through ``kernels.hdc_encode``: on a CUDA device the
+hand-written kernel computes the product, the nonlinearity and both
+normalisations; on the CPU its plain version computes what the JAX
+package's ``encode`` does, in full float32 (``precision.full_f32``).  The
+kernel encodes each row the same way whatever the batch, so a row's bits
+do not depend on how many rows it was encoded with.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Literal, Optional
 import torch
 
 from repro_torch.hdc.conventional import l2_normalize
+from repro_torch.kernels.hdc_encode.ops import hdc_encode
 from repro_torch.precision import full_f32
 
 EncoderKind = Literal["cos", "rp", "rp_sign"]
@@ -65,17 +69,12 @@ def init_encoder(cfg: EncoderConfig, *, device,
 def encode(params: dict, x: torch.Tensor, kind: EncoderKind = "cos"
            ) -> torch.Tensor:
     """phi(x): (..., F) -> (..., D), L2-normalized float32."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=params["proj"].device)
-    z = x @ params["proj"]
-    if kind == "cos":
-        h = torch.cos(z + params["bias"]) * torch.sin(z)
-    elif kind == "rp":
-        h = z
-    elif kind == "rp_sign":
-        h = torch.sign(z)
-    else:
-        raise ValueError(f"unknown encoder kind: {kind}")
-    return l2_normalize(l2_normalize(h) - params["center"])
+    proj = params["proj"]
+    x = torch.as_tensor(x, dtype=torch.float32, device=proj.device)
+    h = hdc_encode(x.reshape(-1, x.shape[-1]).contiguous(), proj.contiguous(),
+                   params["bias"].contiguous(), params["center"].contiguous(),
+                   kind)
+    return h.reshape(*x.shape[:-1], proj.shape[1])
 
 
 def encode_batched(params: dict, x: torch.Tensor, kind: EncoderKind,

@@ -15,8 +15,11 @@ from repro.kernels.bundle_sim.ops import bundle_similarity as jax_bundle_sim
 from repro.kernels.bundle_sim.ref import bundle_similarity_ref as jax_bs_ref
 from repro.kernels.bundle_update.ops import bundle_update as jax_bundle_update
 from repro.kernels.bundle_update.ref import bundle_update_ref as jax_bu_ref
+from repro.hdc.encoders import encode as jax_encode
 from repro.kernels.flip_corrupt.ops import flip_corrupt as jax_flip_corrupt
 from repro.kernels.flip_corrupt.ref import flip_corrupt_ref as jax_fc_ref
+from repro.kernels.hdc_encode.ops import hdc_encode as jax_hdc_encode
+from repro.kernels.hdc_encode.ref import hdc_encode_ref as jax_he_ref
 from repro.kernels.profile_decode.ops import \
     profile_decode_scores as jax_profile_decode
 from repro.kernels.profile_decode.ref import \
@@ -26,6 +29,9 @@ from repro_torch.kernels.bundle_sim import bundle_similarity
 from repro_torch.kernels.bundle_update import bundle_update, bundle_update_ref
 from repro_torch.kernels.flip_corrupt import flip_corrupt, flip_corrupt_ref
 from repro_torch.kernels.flip_corrupt.ref import _mul32, flip_threshold
+from repro_torch.kernels.hdc_encode import (hdc_encode, hdc_encode_plain,
+                                            hdc_encode_ref)
+from repro_torch.hdc.encoders import encode
 from repro_torch.kernels.profile_decode import profile_decode_scores
 
 # the JAX package's own kernel tolerances (tests/test_kernels.py)
@@ -165,6 +171,78 @@ def test_flip_threshold_matches_reference(p):
     assert flip_threshold(p) == int(jax_threshold(jnp.float32(p)))
 
 
+# the JAX package's hdc_encode shapes and tolerance (tests/test_kernels.py
+# ENC_SHAPES, rtol 2e-4 / atol 2e-5)
+ENC_SHAPES = [(8, 10, 256), (64, 617, 1024), (100, 75, 2000), (32, 561, 4096)]
+ENC_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def _enc_inputs(b, f, d):
+    """x (B, F), proj (F, D), bias in [0, 2 pi) and a small center, as the
+    JAX package's test draws them, from numpy."""
+    rng = np.random.default_rng(b + f + d)
+    x = rng.standard_normal((b, f)).astype(np.float32)
+    w = (rng.standard_normal((f, d)) / np.sqrt(f)).astype(np.float32)
+    bias = rng.uniform(0, 2 * np.pi, d).astype(np.float32)
+    center = (rng.standard_normal(d) * 0.01).astype(np.float32)
+    return x, w, bias, center
+
+
+def _l2n(v):
+    return v / (jnp.linalg.norm(v, axis=-1, keepdims=True) + 1e-12)
+
+
+@pytest.mark.parametrize("b,f,d", ENC_SHAPES)
+@pytest.mark.parametrize("kind", ["cos", "rp", "rp_sign"])
+def test_hdc_encode_plain_matches_jax(b, f, d, kind):
+    x, w, bias, center = _enc_inputs(b, f, d)
+    tx, tw, tb, tc = map(torch.from_numpy, (x, w, bias, center))
+    jx, jw, jb, jc = map(jnp.asarray, (x, w, bias, center))
+    # the kernel's contract, unnormalised: nonlin(x W) - center
+    np.testing.assert_allclose(hdc_encode_ref(tx, tw, tb, tc, kind).numpy(),
+                               np.asarray(jax_he_ref(jx, jw, jb, jc, kind)),
+                               **ENC_TOL)
+    got = hdc_encode(tx, tw, tb, tc, kind)
+    assert got.shape == (b, d) and got.dtype == torch.float32
+    want = _l2n(_l2n(jax_he_ref(jx, jw, jb, jnp.zeros((d,)), kind)) - jc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ENC_TOL)
+    pallas = jax_hdc_encode(jx, jw, jb, jc, kind=kind, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **ENC_TOL)
+
+
+@pytest.mark.parametrize("kind", ["cos", "rp", "rp_sign"])
+def test_encode_matches_reference_encode(kind):
+    """The port's encode (through hdc_encode) against the JAX package's
+    encode on the same injected proj, bias and center."""
+    x, w, bias, center = _enc_inputs(37, 617, 1000)
+    params = {"proj": w, "bias": bias, "center": center}
+    got = encode({k: torch.from_numpy(v) for k, v in params.items()}, x,
+                 kind)
+    want = jax_encode({k: jnp.asarray(v) for k, v in params.items()},
+                      jnp.asarray(x), kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ENC_TOL)
+    # leading dimensions pass through
+    got3 = encode({k: torch.from_numpy(v) for k, v in params.items()},
+                  x[:36].reshape(4, 9, 617), kind)
+    assert got3.shape == (4, 9, 1000)
+
+
+def test_hdc_encode_cpu_route_is_plain_and_counts_nothing():
+    x, w, bias, center = map(torch.from_numpy, _enc_inputs(5, 11, 70))
+    common.reset_launches()
+    for kind in ("cos", "rp", "rp_sign"):
+        assert torch.equal(hdc_encode(x, w, bias, center, kind),
+                           hdc_encode_plain(x, w, bias, center, kind))
+    encode({"proj": w, "bias": bias, "center": center}, x)
+    assert sum(common.launches.values()) == 0
+    with pytest.raises(ValueError, match="unknown encoder kind"):
+        hdc_encode(x, w, bias, center, "sin")
+    with pytest.raises(ValueError, match="do not fit"):
+        hdc_encode(x[:, :5], w, bias, center)
+    with pytest.raises(ValueError, match="do not fit"):
+        hdc_encode(x, w, bias[:3], center)
+
+
 def test_cpu_tensors_take_plain_version_and_count_nothing():
     common.reset_launches()
     h = torch.randn(4, 64)
@@ -203,7 +281,7 @@ def test_plain_flip_corrupt_is_plain_ref():
 def test_build_names_every_source_by_hash():
     names = _build.kernel_names()
     assert names == ["bundle_sim", "bundle_update", "flip_corrupt",
-                     "profile_decode"]
+                     "hdc_encode", "profile_decode"]
     for name in names:
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR
