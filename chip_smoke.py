@@ -7,9 +7,9 @@ Run from the root of a checkout, with one card visible:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/repro_torch/``, holds each kernel against its plain PyTorch
-version on the card, then runs three paths through the public entry points
-at the paper's full width, the isolet surrogate (F=617, C=26, D=10,000,
-6,238 train / 1,559 test rows):
+version on the card, then runs three classifier paths through the public
+entry points at the paper's full width, the isolet surrogate (F=617, C=26,
+D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
 
 1. LogHD without refinement (``make_classifier("loghd", ..., k=2,
    extra_bundles=5, refine_epochs=0)``) -> fit -> predict -> the 1-bit and
@@ -27,18 +27,30 @@ at the paper's full width, the isolet surrogate (F=617, C=26, D=10,000,
    1,559 test rows as raw features per served model (every cycle encodes
    through ``hdc_encode``), an open-loop Poisson run of 512 requests at
    half the closed-loop rate, the encoded-input form once, and
-   ``serve_forever`` followed by ``shutdown(drain=True)``.
+   ``serve_forever`` followed by ``shutdown(drain=True)``;
+4. the LM: qwen3-1.7b at full width (28 layers, d_model 2,048, vocab
+   151,936) with the LogHD vocab head (n = 20 bundles), weights drawn on
+   the card from a seed: teacher-forced ``decode_step`` against
+   ``forward`` over (2, 32) tokens in float32, then ``run_serving`` with
+   ``launch/serve.py``'s traffic (6 requests, prompts of 3 + i mod 5
+   tokens, 4 slots, 16 new tokens, ``max_len`` 256, greedy) in bfloat16,
+   once with the loghd head and once with the dense head.
 
 It checks each path's launch counts, that fits repeat bit for bit (the
 LogHD repeat with TF32 turned on globally, watching that every matmul of
 the fit runs in full float32), that kernel and plain predict and training
 agree, that each sweep's p=0 row equals the clean accuracy of the
 quantized model, that an encoded row has the same bits at B = 1, 64 and
-1,559, and that served labels equal ``predict`` of the loaded model (of
-its int8 quantization for the int8 residency); then it times every
-kernel, its plain version and a library call with CUDA events.
+1,559, that served labels equal ``predict`` of the loaded model (of
+its int8 quantization for the int8 residency), that ``loghd_head`` rows
+are bitwise independent of the batch, that the LM's decode matches its
+forward within 2e-3, and that ``loghd_head`` launches exactly once per
+decode step under the loghd head, never under the dense one, with the
+same tokens on a repeat; then it times every kernel, its plain version
+and a library call with CUDA events.
 
-Output: the serving rates and latencies, a JSON line with one entry per
+Output: the serving rates and latencies, the LM's tokens/s and the wall,
+device time and idle share of one decode step, a JSON line with one entry per
 kernel, the card's name and power limit as ``nvidia-smi`` reports them,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0; without a CUDA device, or outside a
@@ -74,7 +86,16 @@ KERNELS = {
                       "src/repro/kernels/bundle_update/bundle_update.py:74"),
     "hdc_encode": ("src/repro_torch/kernels/csrc/hdc_encode.cu",
                    "src/repro/kernels/hdc_encode/hdc_encode.py:70"),
+    "loghd_head": ("src/repro_torch/kernels/csrc/loghd_head.cu",
+                   "src/repro/kernels/loghd_head/loghd_head.py:78"),
 }
+# the LM phase: qwen3-1.7b at full width; loghd_head at the serving step
+# (B, D, n, V) and at a 512-row prefill, at the JAX package's loghd_head
+# tolerances (tests/test_kernels.py:128-129)
+LM_ARCH = "qwen3-1.7b"
+LH_SHAPES = [(4, 2048, 20, 151936), (512, 2048, 20, 151936)]
+LH_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+          "bfloat16": dict(rtol=5e-2, atol=5e-1)}
 # the serving phase's checkpoints (under the gitignored build directory)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 MAX_BATCH = 64
@@ -138,6 +159,14 @@ def device_ms(torch, fn, calls: int = 20):
     """Device time per call: the time of every kernel and copy that `calls`
     calls ran on the card, from torch.profiler, over `calls`; None when the
     profiler records no device time."""
+    return profile_calls(torch, fn, calls)[0] or None
+
+
+def profile_calls(torch, fn, calls: int = 10):
+    """(device ms per call, device kernels and copies per call, the device
+    events as (ms per call, count per call, name), largest first) of
+    `calls` calls of fn under torch.profiler, after one call outside it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -146,11 +175,13 @@ def device_ms(torch, fn, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
     # device-side events only: a CPU op's device time repeats its kernels'
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / calls / 1e3 if total else None
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / calls
+    count = sum(e.count for e in kern) / calls
+    top = sorted(((e.self_device_time_total / 1e3 / calls, e.count / calls,
+                   e.key) for e in kern), reverse=True)
+    return busy, count, top
 
 
 def max_err(a, b) -> float:
@@ -753,6 +784,219 @@ def phase_serving(torch, dev, main: dict, mm: dict) -> dict:
                 cycles=cycles, raw_cycles=raw_cycles)
 
 
+def lm_config(dtype: str = None):
+    """qwen3-1.7b at full width with the loghd head, as the JAX package
+    builds it (``tests/test_arch_smoke.py:118``), in `dtype` (None: the
+    config's bfloat16)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), head="loghd")
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def phase_lm_kernel(torch, dev, shapes=LH_SHAPES) -> float:
+    """loghd_head against its plain version at the decode and prefill
+    shapes: h and M in float32 and bfloat16, P in float32 and bfloat16,
+    at the JAX package's tolerances; a bf16 P read as stored gives the
+    bits of its float32 cast; the rows of the smaller batch are bitwise
+    the first rows of the larger one.  Returns the max abs error at the
+    decode shape in bfloat16 (the serving path's dtypes)."""
+    from repro_torch.kernels.loghd_head import (loghd_head_logits,
+                                                loghd_head_logits_ref)
+    from repro_torch.precision import full_f32
+    g = torch.Generator(device=dev).manual_seed(14)
+    b_max = max(s[0] for s in shapes)
+    _, d, n, v = shapes[0]
+    # the LM's scales: a final-normed state, bundles N(0, 1/D), profiles
+    # 0.05 N(0, 1)
+    h_all = torch.randn((b_max, d), generator=g, device=dev)
+    m32 = torch.randn((n, d), generator=g, device=dev) / d ** 0.5
+    p32 = torch.randn((v, n), generator=g, device=dev) * 0.05
+    err = None
+    for hm in (torch.float32, torch.bfloat16):
+        m = m32.to(hm)
+        first = {}
+        for (b, _, _, _) in shapes:
+            h = h_all[:b].to(hm).contiguous()
+            for pd in (torch.float32, torch.bfloat16):
+                p = p32.to(pd)
+                got = loghd_head_logits(h, m, p)
+                with full_f32():
+                    want = loghd_head_logits_ref(h, m, p)
+                torch.cuda.synchronize()
+                name = str(hm).split(".")[1]
+                e = max_err(got, want)
+                log(f"loghd_head     ({b}, {d}, {n}, {v}) h/M {name}, P "
+                    f"{str(pd).split('.')[1]}: max_abs_err {e:.3e}")
+                check(got.shape == (b, v) and got.dtype == torch.float32,
+                      "loghd_head output shape / dtype")
+                check(bool(torch.isfinite(got).all()), "loghd_head not finite")
+                torch.testing.assert_close(got, want, **LH_TOL[name])
+                if hm == torch.float32:
+                    check(torch.equal(got.argmax(-1), want.argmax(-1)),
+                          "loghd_head argmax differs from plain (f32)")
+                if pd == torch.bfloat16:
+                    check(torch.equal(got, loghd_head_logits(h, m, p.float())),
+                          "loghd_head: bf16 P as stored differs from its "
+                          "f32 cast")
+                first.setdefault(pd, []).append(got)
+                if (b, hm, pd) == (shapes[0][0], torch.bfloat16,
+                                   torch.bfloat16):
+                    err = e
+        for pd, outs in first.items():
+            small = outs[0]
+            check(all(torch.equal(small, o[:small.shape[0]])
+                      for o in outs[1:]),
+                  f"loghd_head rows depend on B (h/M {hm}, P {pd})")
+    log(f"loghd_head: rows 0-{shapes[0][0] - 1} bitwise equal at B = "
+        + ", ".join(str(s[0]) for s in shapes) + " for every dtype pair")
+    return err
+
+
+def phase_lm(torch, dev, cfg32=None, cfg16=None) -> dict:
+    """The decoder LM at full width: teacher-forced decode against forward
+    in float32, then ``run_serving`` with the ``launch/serve.py`` traffic
+    in bfloat16 under the loghd and the dense head, with launch counting,
+    a repeat, and a profile of one decode step."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import requests_for
+    from repro_torch.models import model as M
+    from repro_torch.precision import full_f32
+    from repro_torch.runtime import serve_loop
+
+    cfg32 = cfg32 or lm_config(dtype="float32")
+    cfg16 = cfg16 or lm_config()
+    out: dict = {}
+
+    # 1. decode against forward, float32, tokens (2, 32)
+    g = torch.Generator(device=dev).manual_seed(0)
+    with full_f32(), torch.no_grad():
+        t0 = time.perf_counter()
+        model = M.init_params(cfg32, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        tokens = torch.randint(0, cfg32.vocab, (2, 32), generator=g,
+                               device=dev)
+        want, _ = M.forward(model, cfg32, tokens)
+        state = M.init_decode_state(cfg32, 2, 32, device=dev)
+        steps = []
+        for t in range(tokens.shape[1]):
+            lg, state = M.decode_step(model, cfg32, state, tokens[:, t:t + 1],
+                                      t)
+            steps.append(lg[:, 0])
+        got = torch.stack(steps, dim=1)
+        torch.cuda.synchronize()
+    err = max_err(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"LM {cfg32.name} float32 ({n_params} parameters, drawn in "
+        f"{init_s:.2f} s): teacher-forced decode vs forward over (2, 32) "
+        f"tokens: max_abs_err {err:.3e} on logits up to "
+        f"{float(want.abs().max()):.2f}, argmax agrees on {agree:.4f}")
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+          "LM float32 decode logits not finite or misshapen")
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    out["decode_vs_forward_err"] = err
+    del model, state, want, got, steps
+    torch.cuda.empty_cache()
+
+    # 2. serving in bf16, loghd head then dense head
+    serve = serve_loop.ServeLoopConfig(batch_slots=4, max_new_tokens=16,
+                                       max_len=256)
+    for head in ("loghd", "dense"):
+        cfg = dataclasses.replace(cfg16, head=head)
+        model = M.init_params(cfg, seed=0, device=dev)
+        reqs = requests_for(cfg, 6, seed=0)
+        steps = [0]
+        real_step = serve_loop.decode_step
+
+        def counted(*args, **kw):
+            steps[0] += 1
+            return real_step(*args, **kw)
+
+        serve_loop.decode_step = counted
+        try:
+            torch.cuda.synchronize()
+            common.reset_launches()
+            t0 = time.perf_counter()
+            toks = serve_loop.run_serving(cfg, model, reqs, serve)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(common.launches)
+            n_steps = steps[0]
+            t0 = time.perf_counter()
+            again = serve_loop.run_serving(cfg, model, reqs, serve)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+        finally:
+            serve_loop.decode_step = real_step
+        n_tok = sum(len(v) for v in toks.values())
+        log(f"LM serve {cfg.name} head {head}: {len(toks)} requests, {n_tok}"
+            f" tokens, {n_steps} decode steps in {wall:.3f} s "
+            f"({n_tok / wall:.1f} tokens/s); repeat {wall2:.3f} s "
+            f"({n_tok / wall2:.1f} tokens/s); launches {launches}")
+        for uid in sorted(toks):
+            log(f"  req {uid} (prompt {len(reqs[uid].prompt)}): "
+                f"{toks[uid][:8].tolist()}...")
+        check(sorted(toks) == list(range(6)), "LM serve: requests missing")
+        check(all(len(v) == 17 and v.min() >= 0 and v.max() < cfg.vocab
+                  for v in toks.values()), "LM serve: tokens misshapen")
+        check(all(np.array_equal(toks[u], again[u]) for u in toks),
+              f"LM serve ({head}): a second run gave other tokens")
+        want_lh = n_steps if head == "loghd" else 0
+        check(launches.get("loghd_head", 0) == want_lh,
+              f"loghd_head launched {launches.get('loghd_head', 0)} times "
+              f"over {n_steps} decode steps with the {head} head, not "
+              f"{want_lh}")
+        check(sum(launches.values()) == want_lh,
+              f"other kernels launched on the LM path: {launches}")
+
+        # one decode step at the serving batch, profiled
+        state = M.init_decode_state(cfg, 4, 256, device=dev)
+        tok = torch.randint(0, cfg.vocab, (4, 1), generator=g, device=dev)
+        pos = torch.tensor([5, 9, 17, 33], device=dev)
+
+        def step():
+            return M.decode_step(model, cfg, state, tok, pos)
+        step()
+        walls = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        step_wall = statistics.median(walls) * 1e3
+        busy, count, top = profile_calls(torch, step)
+        x = torch.randn((4, 1, cfg.d_model), generator=g, device=dev).to(
+            model.embed.table.dtype)
+        head_ms, _, head_top = profile_calls(torch, lambda: model.head(x),
+                                             calls=20)
+        log(f"LM decode step ({head} head, B = 4): wall {step_wall:.3f} ms "
+            f"(median of 20), device busy {busy:.3f} ms, so the device "
+            f"idles {1 - busy / step_wall:.1%}; {count:.0f} device kernels "
+            f"and copies a step")
+        for ms, cnt, key in top[:8]:
+            log(f"  {ms:9.4f} ms  {cnt:5.0f}x  {key[:90]}")
+        log(f"LM head ({head}) alone: {head_ms:.5f} ms of device time a "
+            f"call")
+        for ms, cnt, key in head_top[:3]:
+            log(f"  {ms:9.5f} ms  {cnt:5.2f}x  {key[:90]}")
+        out[head] = dict(launches=launches, steps=n_steps, tokens=n_tok,
+                         wall_s=wall, repeat_wall_s=wall2,
+                         step_wall_ms=step_wall, step_device_ms=busy,
+                         kernels_per_step=count, head_device_ms=head_ms,
+                         model=model if head == "loghd" else None)
+        if head != "loghd":
+            del model
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_fit_profile(torch, mm: dict) -> dict:
     """Where the LogHD fit's time goes: one Eq. 9 epoch (98 minibatch
     steps) on the host clock and on the device (torch.profiler), the
@@ -809,7 +1053,50 @@ def phase_fit_profile(torch, mm: dict) -> dict:
                 steps=steps, kernels_per_step=per_step, codebook_s=book_s)
 
 
-def phase_times(torch, main: dict, mm: dict, rates: dict) -> dict:
+def time_lm_head(torch, lm: dict, rates: dict) -> dict:
+    """loghd_head, its plain version and the library form on the served
+    LM's bf16 bundles and profiles and bf16 hidden states, at the decode
+    step (B = 4, the row of the kernels line) and at a 512-row prefill."""
+    from repro_torch.kernels.loghd_head import (loghd_head_logits,
+                                                loghd_head_logits_ref)
+    head = lm["loghd"]["model"].head
+    m = head.bundles.detach().contiguous()
+    p = head.profiles.detach().contiguous()
+    g = torch.Generator(device=m.device).manual_seed(5)
+    (n, d), v = m.shape, p.shape[0]
+    row = None
+    for b in (4, 512):
+        h = torch.randn((b, d), generator=g, device=m.device).to(m.dtype)
+
+        def library(h=h):
+            a = h.float() @ m.float().T
+            pf = p.float()
+            return torch.addmm(-(a * a).sum(1, keepdim=True)
+                               - (pf * pf).sum(1), a, pf.T, alpha=2.0)
+        roles = {"kernel": lambda h=h: loghd_head_logits(h, m, p),
+                 "plain": lambda h=h: loghd_head_logits_ref(h, m, p),
+                 "library": library}
+        t = {role: (time_ms(torch, fn), device_ms(torch, fn))
+             for role, fn in roles.items()}
+        n_bytes = (b * d * h.element_size() + n * d * m.element_size()
+                   + v * n * p.element_size() + b * v * 4)
+        n_ops = (2 * b * d * n + 2 * b * v * n + 2 * v * n + 2 * b * n
+                 + 3 * b * v)
+        b_ms, b_by = bound_ms(rates, n_bytes, n_ops, "float32")
+        log(f"time loghd_head B={b:<4} bound {b_ms:.5f} ms by {b_by} "
+            f"({n_bytes} B, {n_ops} flop); CUDA events | profiler device "
+            f"ms: " + "; ".join(f"{role} {t[role][0]} | {t[role][1]}"
+                                 for role in t))
+        if b == 4:
+            row = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
+                       library_ms=t["library"][0], device_ms=t["kernel"][1],
+                       plain_device_ms=t["plain"][1],
+                       library_device_ms=t["library"][1], bound_ms=b_ms,
+                       bound_by=b_by)
+    return row
+
+
+def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     """Kernel, plain and library times at the main paths' shapes."""
     import torch.nn.functional as F
     from repro_torch.core.bundling import symbol_targets
@@ -923,6 +1210,7 @@ def phase_times(torch, main: dict, mm: dict, rates: dict) -> dict:
             f"({cs['bytes']} B, {cs['ops']} flop); CUDA events | profiler "
             f"device ms: " + "; ".join(
                 f"{role} {t[role][0]} | {t[role][1]}" for role in t))
+    out["loghd_head"] = time_lm_head(torch, lm, rates)
     return out
 
 
@@ -954,20 +1242,25 @@ def main() -> int:
     rates = card_rates(kind)
 
     errs = phase_kernels(torch, dev)
+    errs["loghd_head"] = phase_lm_kernel(torch, dev)
     main_run = phase_main_path(torch, dev)
     mm = phase_matched_memory(torch, dev)
     serve = phase_serving(torch, dev, main_run, mm)
     phase_fit_profile(torch, mm)
-    times = phase_times(torch, main_run, mm, rates)
+    lm = phase_lm(torch, dev)
+    times = phase_times(torch, main_run, mm, lm, rates)
 
     # launches of every path's run: slice 1's LogHD path, the shared
     # encoder and each family's fit -> predict -> sweep of the
-    # matched-memory phase, and the serving phase
+    # matched-memory phase, the serving phase, and the LM's serving runs
+    # under each head
     by_path = {"loghd_refine_off": main_run["launches"],
                "matched_memory_encoder": mm["enc_launches"]}
     by_path.update({f"matched_memory_{name}": r["launches"]
                     for name, r in mm["families"].items()})
     by_path["serve"] = serve["launches"]
+    by_path.update({f"lm_serve_{head}": lm[head]["launches"]
+                    for head in ("loghd", "dense")})
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]

@@ -1,16 +1,18 @@
-"""The predict, training-step and corrupt surface that routes to the CUDA
-kernels (port of ``repro.api.dispatch``).
+"""The predict, training-step, LM-head and corrupt surface that routes to
+the CUDA kernels (port of ``repro.api.dispatch``).
 
 Predict: a model with the l2 metric whose queries lie on a CUDA device goes
 through ``bundle_sim`` (every family) and ``profile_decode`` (LogHD,
 hybrid); the argmax stays in torch.  Everything else (CPU tensors, the cos
 and maha metrics) takes the model's own plain-torch ``predict_encoded``.
 Training: ``fused_bundle_update`` is the minibatch step of the fit engine,
-through ``bundle_update``.  Corrupt: each QTensor leaf goes through
-``flip_corrupt`` (the kernel for CUDA tensors, its bit-exact plain version
-for CPU tensors).  PyTorch runs eagerly, so no compiled-executable cache is
-needed; ``clear_cache`` still resets every cache a later layer registers
-(the serving layer's bucket bookkeeping).
+through ``bundle_update``.  LM head: ``loghd_head_scores`` is the
+decoder LM's LogHD vocab head, through ``loghd_head``.  Corrupt: each
+QTensor leaf goes through ``flip_corrupt`` (the kernel for CUDA tensors,
+its bit-exact plain version for CPU tensors).  PyTorch runs eagerly, so
+no compiled-executable cache is needed; ``clear_cache`` still resets
+every cache a later layer registers (the serving layer's bucket
+bookkeeping).
 """
 
 from __future__ import annotations
@@ -30,12 +32,13 @@ from repro_torch.kernels.bundle_sim.ops import bundle_similarity
 from repro_torch.kernels.bundle_update.ops import bundle_update
 from repro_torch.kernels.bundle_update.ref import bundle_update_ref
 from repro_torch.kernels.flip_corrupt.ops import flip_corrupt
+from repro_torch.kernels.loghd_head.ops import loghd_head_logits
 from repro_torch.kernels.profile_decode.ops import profile_decode_scores
 from repro_torch.precision import full_f32
 
-__all__ = ["predict_fn", "predict_encoded", "fused_bundle_update",
-           "corrupt_dequant", "corrupt_materialize", "register_cache_clearer",
-           "clear_cache"]
+__all__ = ["predict_fn", "predict_encoded", "loghd_head_scores",
+           "fused_bundle_update", "corrupt_dequant", "corrupt_materialize",
+           "register_cache_clearer", "clear_cache"]
 
 
 def _activations(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -85,6 +88,25 @@ def predict_fn(model: HDModel,
                use_kernels: Optional[bool] = None) -> Callable:
     """``(model, h) -> labels`` for `model`'s family."""
     return functools.partial(predict_encoded, use_kernels=use_kernels)
+
+
+def loghd_head_scores(x: torch.Tensor, bundles: torch.Tensor,
+                      profiles: torch.Tensor) -> torch.Tensor:
+    """LogHD LM-head logits -||x M^T - P_v||^2: (..., D) -> (..., V) f32.
+
+    Every call goes through ``loghd_head``: the kernel for CUDA tensors (or
+    an error), its plain version for CPU tensors.  The reference casts the
+    profiles to float32 here; ``loghd_head`` widens them itself (exactly),
+    so the stored profiles pass as they are.
+
+    Unlike the reference's jnp branch, which rounds ``x @ bundles.T`` to
+    the inputs' dtype before widening, both routes widen x and the bundles
+    first, as the Pallas kernel does: at bfloat16 the CPU result is the
+    kernel's, not the JAX package's CPU path's."""
+    lead = x.shape[:-1]
+    h = x.reshape(-1, x.shape[-1]).contiguous()
+    out = loghd_head_logits(h, bundles.contiguous(), profiles.contiguous())
+    return out.reshape(*lead, profiles.shape[0])
 
 
 def fused_bundle_update(m: torch.Tensor, coeff: torch.Tensor,

@@ -6,6 +6,7 @@ main path, each with a plain PyTorch version beside it:
   flip_corrupt     PRNG -> XOR -> sign-extend -> f32   (fault sweep)
   bundle_update    l2n(M + lr C^T H) minibatch step    (training)
   hdc_encode       l2n(l2n(nonlin(x W)) - center)      (every encode)
+  loghd_head       -||h M^T - P_v||^2 vocab logits     (LM head)
 
 Sources are ``csrc/*.cu``, built for sm_90a at first use (``_build``).
 Wrappers route by device (``common``): CPU tensors take the plain version,

@@ -1,0 +1,2 @@
+from repro_torch.kernels.loghd_head.ops import MAX_N, loghd_head_logits
+from repro_torch.kernels.loghd_head.ref import loghd_head_logits_ref

@@ -1,0 +1,294 @@
+"""Generic decoder LM assembled from a periodic block pattern (port of
+``repro.models.model``).
+
+A ModelConfig (``repro_torch.configs``) names a ``pattern``, the repeating
+unit of blocks (each block: norm, mixer, norm, ffn), repeated
+``n_periods`` times, and an optional ``prefix_pattern`` of ``n_prefix``
+layers before it.  The port stores the body as one ``ModuleList`` per
+pattern position, indexed by period, as the reference stacks its
+parameters, and walks it in the reference's two orders: ``forward``
+period-major (``model.py:238-245``), ``decode_step`` position-major
+(``model.py:389-396``).  The two agree when the pattern is one block (qwen3
+and every other config of this slice but gemma3) or there is one period;
+otherwise teacher-forced decode is a different network from forward, in
+the reference and so in the port.
+
+Heads: "dense" (the unembedding, a plain matmul as in the reference) or
+"loghd" (the paper's class-axis compression of the vocab classifier:
+bundles (n, D) and profiles (V, n), logits are the profile-decode scores of
+``api.dispatch.loghd_head_scores``, through the ``loghd_head`` kernel).
+
+This slice ports the attn and attn_local mixers and the dense ffn; a config
+with mla, mamba, mlstm or slstm mixers or moe ffns raises
+``NotImplementedError`` (ROADMAP queue 1).  There is no loss or training
+step yet.  ``decode_step`` updates the decode state in place and returns
+it (the reference returns a new state).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.api.dispatch import loghd_head_scores
+from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models.attention import (Attention, AttnConfig, DecodeIndex,
+                                          init_kv_cache)
+from repro_torch.models.layers import (DenseHead, Embed, GatedMLP, norm_scale,
+                                       normal_, rms_norm, rope_table)
+
+_UNPORTED = "is not ported yet (ROADMAP queue 1, item 'LM stack')"
+
+
+def _mixer_cfg(cfg: ModelConfig, blk: BlockSpec) -> AttnConfig:
+    if blk.mixer not in ("attn", "attn_local"):
+        raise NotImplementedError(f"the {blk.mixer} mixer {_UNPORTED}")
+    return AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
+        rope_theta=cfg.rope_theta,
+        window=cfg.local_window if blk.mixer == "attn_local" else None)
+
+
+class Block(nn.Module):
+    """Residual block: x + mixer(ln1(x)), then x + ffn(ln2(x))."""
+
+    def __init__(self, cfg: ModelConfig, blk: BlockSpec, *, device, dtype):
+        super().__init__()
+        if blk.ffn not in ("dense", "none"):
+            raise NotImplementedError(f"the {blk.ffn} ffn {_UNPORTED}")
+        self.ln1 = norm_scale(cfg.d_model, device)
+        self.attn = Attention(_mixer_cfg(cfg, blk), device=device, dtype=dtype)
+        self.mlp = None
+        if blk.ffn == "dense":
+            self.ln2 = norm_scale(cfg.d_model, device)
+            self.mlp = GatedMLP(cfg.d_model, cfg.d_ff, device=device,
+                                dtype=dtype)
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        self.attn.init_weights(gen)
+        if self.mlp is not None:
+            self.mlp.init_weights(gen)
+
+    def forward(self, x: torch.Tensor, rope) -> torch.Tensor:
+        # the mixer's output is cast to x's dtype (model.py:168)
+        x = x + self.attn(rms_norm(x, self.ln1), rope).to(x.dtype)
+        if self.mlp is not None:
+            x = x + self.mlp(rms_norm(x, self.ln2))
+        return x
+
+    def decode(self, x: torch.Tensor, cache: dict, layer: int, rope,
+               where: DecodeIndex) -> torch.Tensor:
+        x = x + self.attn.decode(rms_norm(x, self.ln1), cache["k"][layer],
+                                 cache["v"][layer], rope, where)
+        if self.mlp is not None:
+            x = x + self.mlp(rms_norm(x, self.ln2))
+        return x
+
+
+class LogHDHead(nn.Module):
+    """The LogHD vocab head: bundles (n, D) and profiles (V, n)."""
+
+    def __init__(self, d_model: int, vocab: int, n: int, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.bundles = nn.Parameter(torch.empty(n, d_model, **kw))
+        self.profiles = nn.Parameter(torch.empty(vocab, n, **kw))
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        normal_(self.bundles, gen, 1.0 / math.sqrt(self.bundles.shape[1]))
+        normal_(self.profiles, gen, 0.05)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return loghd_head_scores(x, self.bundles, self.profiles)
+
+
+class DecoderLM(nn.Module):
+    """The parameters of one ModelConfig on one device, and its passes.
+
+    ``prefix[i][r]`` is repetition r of prefix-pattern position i,
+    ``body[i][p]`` period p of pattern position i."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.cfg = cfg
+        dtype = getattr(torch, cfg.dtype)
+        kw = dict(device=device, dtype=dtype)
+        self.embed = Embed(cfg.vocab, cfg.d_model, **kw)
+        self.final_norm = norm_scale(cfg.d_model, device)
+        reps = (cfg.n_prefix // len(cfg.prefix_pattern)
+                if cfg.prefix_pattern else 0)
+        self.prefix = nn.ModuleList(
+            nn.ModuleList(Block(cfg, blk, **kw) for _ in range(reps))
+            for blk in cfg.prefix_pattern)
+        self.body = nn.ModuleList(
+            nn.ModuleList(Block(cfg, blk, **kw) for _ in range(cfg.n_periods))
+            for blk in cfg.pattern)
+        if cfg.head == "dense":
+            self.head = DenseHead(cfg.d_model, cfg.vocab, **kw)
+        elif cfg.head == "loghd":
+            self.head = LogHDHead(cfg.d_model, cfg.vocab, cfg.loghd_bundles,
+                                  **kw)
+        else:
+            raise ValueError(cfg.head)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        """Draw every weight from `gen`, the head last, so that the dense
+        and LogHD variants of one config share their backbone for a seed.
+        Norm scales and biases stay zero, as in the reference."""
+        self.embed.init_weights(gen)
+        for stack in (*self.prefix, *self.body):
+            for blk in stack:
+                blk.init_weights(gen)
+        self.head.init_weights(gen)
+
+    def _embed(self, tokens, embeddings) -> torch.Tensor:
+        if embeddings is None:
+            x = self.embed(torch.as_tensor(tokens, device=self.device).long())
+        else:
+            x = embeddings
+        if self.cfg.scale_embed:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def backbone(self, tokens=None, embeddings=None) -> torch.Tensor:
+        """Everything up to the head: (B, S, D) final hidden states."""
+        x = self._embed(tokens, embeddings)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        rope = rope_table(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        # prefix: position-major, all repetitions of a position in turn
+        # (model.py:228-233)
+        for stack in self.prefix:
+            for blk in stack:
+                x = blk(x, rope)
+        # body: period-major, the whole pattern once per period
+        # (model.py:238-245)
+        for p in range(self.cfg.n_periods):
+            for stack in self.body:
+                x = stack[p](x, rope)
+        return rms_norm(x, self.final_norm)
+
+    def forward(self, tokens=None, *, embeddings=None):
+        """tokens (B, S) int (or `embeddings` (B, S, D) from a frontend
+        stub) -> (logits (B, S, V) float32, aux loss 0.0)."""
+        x = self.backbone(tokens, embeddings)
+        return self.head(x), torch.zeros((), device=x.device)
+
+    @torch.no_grad()
+    def decode_step(self, state: dict, tokens, pos, *, embeddings=None):
+        """One decode step.  tokens (B, 1) int; pos a scalar or (B,) int
+        per-slot positions.  Writes each layer's k and v into `state` in
+        place; returns (logits (B, 1, V) float32, state)."""
+        x = self._embed(tokens, embeddings)
+        b = x.shape[0]
+        pos = torch.broadcast_to(
+            torch.as_tensor(pos, dtype=torch.int64, device=x.device), (b,))
+        rope = rope_table(pos[:, None], self.cfg.head_dim,
+                          self.cfg.rope_theta)
+        where: dict = {}
+
+        def index(blk: Block, cache: dict) -> DecodeIndex:
+            key = (cache["k"].shape[2], blk.attn.cfg.window is not None)
+            if key not in where:
+                where[key] = DecodeIndex.of(pos, *key)
+            return where[key]
+
+        # both stacks position-major: every layer of pattern position 0,
+        # then of position 1, ... (model.py:376-387 and :389-396)
+        for name, stacks in (("prefix", self.prefix), ("body", self.body)):
+            for stack, cache in zip(stacks, state.get(name, ())):
+                for layer, blk in enumerate(stack):
+                    x = blk.decode(x, cache, layer, rope, index(blk, cache))
+        x = rms_norm(x, self.final_norm)
+        return self.head(x), state
+
+
+def _check_cfg(params: DecoderLM, cfg: ModelConfig) -> DecoderLM:
+    if cfg is not params.cfg and cfg != params.cfg:
+        raise ValueError(f"params were built for {params.cfg.name} "
+                         f"(head {params.cfg.head}), not {cfg.name} "
+                         f"(head {cfg.head})")
+    return params
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> DecoderLM:
+    """The model of `cfg` with weights drawn from a ``torch.Generator``
+    seeded with `seed` on `device` (None: the card, raising without one),
+    at the reference's scales (``attention.py:44-61``, ``layers.py:54-83``,
+    ``model.py:124-133``).  The draws differ from jax's for the same seed."""
+    dev = resolve_device(device)
+    model = DecoderLM(cfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def head_logits(params: DecoderLM, cfg: ModelConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    """x: (..., D) -> (..., V) float32 logits."""
+    return _check_cfg(params, cfg).head(x)
+
+
+def forward(params: DecoderLM, cfg: ModelConfig, tokens=None, *,
+            embeddings: Optional[torch.Tensor] = None):
+    """tokens (B, S) -> (logits (B, S, V) float32, aux loss)."""
+    return _check_cfg(params, cfg)(tokens, embeddings=embeddings)
+
+
+def prefill(params: DecoderLM, cfg: ModelConfig, tokens=None,
+            embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward pass's last-position logits (B, 1, V)."""
+    logits, _ = forward(params, cfg, tokens, embeddings=embeddings)
+    return logits[:, -1:]
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                      device=None) -> dict:
+    """Zero KV caches in the reference's layout: ``{"prefix": [...],
+    "body": [...]}`` with one ``{"k", "v"}`` pair per pattern position,
+    each (layers, B, L, KV, hd) in the config's dtype ("prefix" only when
+    the config has one)."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+
+    def caches(pattern, layers):
+        return [init_kv_cache(_mixer_cfg(cfg, blk), batch, max_len, dtype,
+                              dev, layers=layers) for blk in pattern]
+
+    state = {}
+    if cfg.prefix_pattern:
+        state["prefix"] = caches(cfg.prefix_pattern,
+                                 cfg.n_prefix // len(cfg.prefix_pattern))
+    state["body"] = caches(cfg.pattern, cfg.n_periods)
+    return state
+
+
+def decode_step(params: DecoderLM, cfg: ModelConfig, state: dict, tokens,
+                pos, *, embeddings: Optional[torch.Tensor] = None):
+    """One decode step: (logits (B, 1, V) float32, state updated in place)."""
+    return _check_cfg(params, cfg).decode_step(state, tokens, pos,
+                                               embeddings=embeddings)
+
+
+class Model:
+    """Thin OO facade, as the reference's (without the loss: training is
+    not ported yet)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def init(self, seed: int = 0) -> DecoderLM:
+        return init_params(self.cfg, seed, self.device)
+
+    def forward(self, params: DecoderLM, tokens):
+        return forward(params, self.cfg, tokens)

@@ -236,6 +236,8 @@ def test_package_imports_neither_jax_nor_repro():
     code = (
         "import pkgutil, sys\n"
         "import repro_torch\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.runtime\n"
+        "import repro_torch.launch.serve\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
