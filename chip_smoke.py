@@ -18,8 +18,9 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    encodings and prototypes (``benchmarks/common.py``): LogHD (n=10, 50
    Eq. 9 epochs), SparseHD (sparsity 0.6, 30 OnlineHD epochs), hybrid
    (n=20, sparsity 0.48, 50 epochs) and conventional (10 OnlineHD epochs),
-   each fitted with every minibatch through ``bundle_update``, predicted,
-   and swept at 1 bit with the hypervector scope;
+   each fitted with every minibatch through ``bundle_update`` (the (n, B,
+   D) of each step recorded), predicted, and swept at 1 bit with the
+   hypervector scope;
 3. serving: path 1's LogHD model and path 2's conventional model saved
    with ``save_model`` and loaded with ``load_model``, each registered in a
    ``ClassifierService`` at f32 and at int8 residency (max_batch 64, the
@@ -51,14 +52,17 @@ and a library call with CUDA events.
 
 Output: the serving rates and latencies, the LM's tokens/s and the wall,
 device time and idle share of one decode step, a JSON line with one entry per
-kernel, the card's name and power limit as ``nvidia-smi`` reports them,
-and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
+kernel (``hdc_encode`` with its device times at B = 1, 64 and 1,559 and
+``bundle_update`` at each family's minibatch under ``shapes``), the card's
+name and power limit as ``nvidia-smi`` reports them, and as the last line
+``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0; without a CUDA device, or outside a
 checkout, it exits with an error before printing any result.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import shutil
 import statistics
@@ -121,13 +125,16 @@ def nvidia_smi() -> str:
 
 def card_rates(name: str) -> dict:
     """Published peaks (NVIDIA data sheets) used for the bounds: memory
-    bytes/s, float32 flop/s outside the tensor cores, and int32 op/s (half
-    the float32 rate: Hopper has 64 INT32 and 128 FP32 lanes per SM)."""
+    bytes/s, float32 flop/s outside the tensor cores, int32 op/s (half
+    the float32 rate: Hopper has 64 INT32 and 128 FP32 lanes per SM), and
+    the float32 flop/s of 3xTF32 on the tensor cores (three dense TF32
+    products per float32 one), the units of ``hdc_encode``'s product."""
     if "PCIe" in name:
-        mem, f32 = 2.0e12, 51e12
+        mem, f32, tf32 = 2.0e12, 51e12, 378e12
     else:
-        mem, f32 = 3.35e12, 67e12
-    return {"bytes": mem, "float32": f32, "int32": f32 / 2}
+        mem, f32, tf32 = 3.35e12, 67e12, 495e12
+    return {"bytes": mem, "float32": f32, "int32": f32 / 2,
+            "tf32x3": tf32 / 3}
 
 
 def bound_ms(rates: dict, n_bytes: float, n_ops: float, op_type: str):
@@ -155,11 +162,46 @@ def time_ms(torch, fn, reps: int = 25, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, calls: int = 20):
-    """Device time per call: the time of every kernel and copy that `calls`
-    calls ran on the card, from torch.profiler, over `calls`; None when the
-    profiler records no device time."""
-    return profile_calls(torch, fn, calls)[0] or None
+def warm(torch, fn, ms: float = 50.0) -> None:
+    """Call fn for about `ms` of wall time, so that the card's clocks are
+    up before a measurement."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while (time.perf_counter() - t0) * 1e3 < ms:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+
+
+def device_ms(torch, fn, calls: int = 40, tries: int = 6):
+    """Device time per call of fn: torch.profiler's device events (kernels
+    and copies) over `calls` calls, after warm-up.  The profiler drops
+    device events from a session: a few in a long process (late in this
+    script, 4 of every session's events), at times all of them.  Every call
+    of fn runs the same kernels, so each event name counts as its mean time
+    over the events recorded times its launches per call (its events over
+    `calls`, rounded).  A session counts when every name kept at least 3/4
+    of those events and its launches per call equal another counted
+    session's; the result is the median of the first two such.  None, with
+    a log line, when `tries` sessions give no two."""
+    warm(torch, fn)
+    counted = collections.defaultdict(list)
+    seen = []
+    for _ in range(tries):
+        top = profile_calls(torch, fn, calls)[2]
+        seen.append([(round(cnt * calls), name[:40]) for _, cnt, name in top])
+        launches = {name: round(cnt) for _, cnt, name in top}
+        if not top or any(cnt < 0.75 * max(launches[name], 1)
+                          for _, cnt, name in top):
+            continue
+        plan = tuple(sorted(launches.items()))
+        counted[plan].append(sum(ms / cnt * launches[name]
+                                 for ms, cnt, name in top))
+        if len(counted[plan]) == 2:
+            return statistics.median(counted[plan])
+    log(f"device_ms: no two whole profiler sessions of {calls} calls; "
+        f"events by name: {seen}")
+    return None
 
 
 def profile_calls(torch, fn, calls: int = 10):
@@ -256,10 +298,12 @@ def phase_kernels(torch, dev) -> dict:
         f"p {{0,0.1,1}} x 2 seeds")
     errs["flip_corrupt"] = worst
     # (n, B, D): LogHD refine, hybrid base, SparseHD retrain at budget 0.4,
-    # conventional, then n > 32 and everything ragged
+    # conventional, then n > 32, everything ragged, and more tiles than the
+    # card holds blocks at once (blocks walk several tiles)
     tol = TOL["float32"]
     for (n, b, d) in [(10, 64, 10000), (20, 64, 10000), (26, 64, 4000),
-                      (26, 256, 10000), (40, 37, 1000), (3, 7, 130)]:
+                      (26, 256, 10000), (40, 37, 1000), (3, 7, 130),
+                      (100, 64, 10000)]:
         m = l2_normalize(torch.randn((n, d), generator=g, device=dev))
         c = torch.randn((b, n), generator=g, device=dev)
         h = l2_normalize(torch.randn((b, d), generator=g, device=dev))
@@ -297,18 +341,24 @@ def enc_inputs(torch, dev, g, b: int, f: int, d: int):
 
 
 def check_hdc_encode(torch, dev, g) -> float:
-    """hdc_encode against its plain version at the serving, predict and
-    ragged shapes, every kind, rtol 2e-4 / atol 2e-5 (the JAX package's
-    own bound).  For rp_sign an element may differ only where |x W| is
-    within rounding of 0 (the two sum in different orders, and the sign of
-    such a z is not defined by the inputs); those are counted and must be
-    rare.  Returns the max abs error at the 64-row cos shape."""
+    """hdc_encode against its plain version at the serving and predict
+    shapes, a D whose rows the normalisation cannot hold in registers
+    (40,000 > 8 blocks x 2,048 columns), and ragged shapes (the last with
+    D % 4 != 0, so W lands by cp.async, and x a view whose rows start off
+    16-byte boundaries), every kind, rtol 2e-4
+    / atol 2e-5 (the JAX package's own bound).  For rp_sign an element may
+    differ only where |x W| is within rounding of 0 (the two sum in
+    different orders, and the sign of such a z is not defined by the
+    inputs); those are counted and must be rare.  Returns the max abs
+    error at the 64-row cos shape."""
     from repro_torch.kernels.hdc_encode import hdc_encode, hdc_encode_plain
     from repro_torch.precision import full_f32
     err64 = None
     for (b, f, d) in [(1, 617, 10000), (64, 617, 10000), (4096, 617, 10000),
-                      (100, 75, 2000)]:
+                      (3, 617, 40000), (100, 75, 2000), (37, 61, 1001)]:
         x, w, bias, center = enc_inputs(torch, dev, g, b, f, d)
+        if (b, f, d) == (37, 61, 1001):   # rows that start off 16 bytes
+            x = torch.randn((b + 1, f), generator=g, device=dev)[1:]
         for kind in ("cos", "rp", "rp_sign"):
             got = hdc_encode(x, w, bias, center, kind)
             with full_f32():
@@ -508,12 +558,24 @@ def phase_matched_memory(torch, dev) -> dict:
     families = budget_families(spec)
 
     out = {}
+    step = fit_engine.fused_bundle_update
     for name, (kw, want_steps) in families.items():
         clf = make_classifier(name, spec.n_classes, enc_cfg=enc_cfg, **kw)
+        # the (n, B, D) of every minibatch step of the fit, read off the
+        # fit engine's step (the kernel's launches are counted as ever)
+        shapes = collections.Counter()
+
+        def record(m, coeff, h, lr, use_kernel=None):
+            shapes[(m.shape[0], h.shape[0], m.shape[1])] += 1
+            return step(m, coeff, h, lr, use_kernel=use_kernel)
         torch.cuda.synchronize()
         common.reset_launches()
         t0 = time.perf_counter()
-        clf = clf.fit(x_tr, y_tr, **shared)
+        fit_engine.fused_bundle_update = record
+        try:
+            clf = clf.fit(x_tr, y_tr, **shared)
+        finally:
+            fit_engine.fused_bundle_update = step
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -530,9 +592,11 @@ def phase_matched_memory(torch, dev) -> dict:
         launches = dict(common.launches)
         out[name] = dict(clf=clf, labels=labels, accs=accs, fit_s=fit_s,
                          predict_s=predict_s, sweep_s=sweep_s,
-                         launches=launches, want_steps=want_steps)
+                         launches=launches, want_steps=want_steps,
+                         update_shapes=shapes)
         log(f"{name:<12} fit {fit_s:.3f} s, predict {predict_s:.4f} s, "
-            f"1-bit sweep {sweep_s:.3f} s; launches {launches}")
+            f"1-bit sweep {sweep_s:.3f} s; launches {launches}; minibatch "
+            f"(n, B, D): {dict(shapes)}")
 
     # checks, after every count was read
     for name, r in out.items():
@@ -540,6 +604,9 @@ def phase_matched_memory(torch, dev) -> dict:
         got = r["launches"].get("bundle_update", 0)
         check(got == r["want_steps"], f"{name}: bundle_update launched {got} "
               f"times, not {r['want_steps']}")
+        check(sum(r["update_shapes"].values()) == got,
+              f"{name}: {sum(r['update_shapes'].values())} minibatch steps "
+              f"recorded, {got} launches")
         check(r["launches"].get("bundle_sim", 0) > 0,
               f"{name}: bundle_sim never launched")
         if name in ("loghd", "hybrid"):
@@ -973,16 +1040,15 @@ def phase_lm(torch, dev, cfg32=None, cfg16=None) -> dict:
         busy, count, top = profile_calls(torch, step)
         x = torch.randn((4, 1, cfg.d_model), generator=g, device=dev).to(
             model.embed.table.dtype)
-        head_ms, _, head_top = profile_calls(torch, lambda: model.head(x),
-                                             calls=20)
+        head_ms = device_ms(torch, lambda: model.head(x))
+        head_top = profile_calls(torch, lambda: model.head(x), calls=20)[2]
         log(f"LM decode step ({head} head, B = 4): wall {step_wall:.3f} ms "
             f"(median of 20), device busy {busy:.3f} ms, so the device "
             f"idles {1 - busy / step_wall:.1%}; {count:.0f} device kernels "
             f"and copies a step")
         for ms, cnt, key in top[:8]:
             log(f"  {ms:9.4f} ms  {cnt:5.0f}x  {key[:90]}")
-        log(f"LM head ({head}) alone: {head_ms:.5f} ms of device time a "
-            f"call")
+        log(f"LM head ({head}) alone: {head_ms} ms of device time a call")
         for ms, cnt, key in head_top[:3]:
             log(f"  {ms:9.5f} ms  {cnt:5.2f}x  {key[:90]}")
         out[head] = dict(launches=launches, steps=n_steps, tokens=n_tok,
@@ -1096,6 +1162,67 @@ def time_lm_head(torch, lm: dict, rates: dict) -> dict:
     return row
 
 
+def enc_case(torch, x, proj, bias, center) -> dict:
+    """hdc_encode's roles on one input: the kernel, its plain version, the
+    library form, and cuBLAS's x @ W alone (the product without the cos /
+    sin epilogue and the normalisations); its bytes, and its flops in the
+    units of its product (3xTF32)."""
+    from repro_torch.kernels.hdc_encode import hdc_encode, hdc_encode_plain
+    (rows, f), d = x.shape, proj.shape[1]
+    return dict(
+        kernel=lambda: hdc_encode(x, proj, bias, center, "cos"),
+        plain=lambda: hdc_encode_plain(x, proj, bias, center, "cos"),
+        library=lambda: torch.cos(torch.addmm(bias, x, proj))
+        * torch.sin(x @ proj),
+        gemm=lambda: x @ proj,
+        bytes=(rows * f + f * d + rows * d + 2 * d) * 4,
+        ops=2 * rows * f * d, op_type="tf32x3")
+
+
+def update_inputs(torch, dev, g, n: int, b: int, d: int):
+    """Unit bundles m (n, D), small coefficients c (B, n), unit queries h
+    (B, D)."""
+    from repro_torch.hdc.conventional import l2_normalize
+    m = l2_normalize(torch.randn((n, d), generator=g, device=dev))
+    c = torch.randn((b, n), generator=g, device=dev) * 0.01
+    h = l2_normalize(torch.randn((b, d), generator=g, device=dev))
+    return m, c, h
+
+
+def update_case(torch, m, c, h, lr: float) -> dict:
+    """bundle_update's roles on one input, its bytes and flops."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.bundle_update import (bundle_update,
+                                                   bundle_update_ref)
+    (n, d), b = m.shape, h.shape[0]
+    return dict(
+        kernel=lambda: bundle_update(m, c, h, lr),
+        plain=lambda: bundle_update_ref(m, c, h, lr),
+        library=lambda: F.normalize(torch.addmm(m, c.T, h, alpha=lr),
+                                    dim=-1),
+        bytes=(2 * n * d + b * d + b * n) * 4,
+        ops=2 * n * b * d + 3 * n * d, op_type="float32")
+
+
+def shape_row(torch, rates: dict, shape, cs: dict, roles) -> dict:
+    """Device ms (torch.profiler) of each role of a case at one shape, the
+    kernel's CUDA-event ms per call (host included) beside it, and the
+    bound."""
+    b_ms, b_by = bound_ms(rates, cs["bytes"], cs["ops"], cs["op_type"])
+    row = {"shape": list(shape), "bound_ms": b_ms, "bound_by": b_by,
+           "ms": time_ms(torch, cs["kernel"])}
+    row.update({f"{role}_device_ms": device_ms(torch, cs[role])
+                for role in roles})
+    log(f"time {shape} " + ", ".join(f"{k} {v}" for k, v in row.items()
+                                     if k != "shape"))
+    return row
+
+
+# hdc_encode's timed batches: one row (a lone request), a service bucket,
+# the predict batch
+ENC_TIME_ROWS = (1, MAX_BATCH, 1559)
+
+
 def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     """Kernel, plain and library times at the main paths' shapes."""
     import torch.nn.functional as F
@@ -1103,11 +1230,8 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     from repro_torch.hdc.conventional import l2_normalize
     from repro_torch.kernels.bundle_sim import (bundle_similarity,
                                                 bundle_similarity_ref)
-    from repro_torch.kernels.bundle_update import (bundle_update,
-                                                   bundle_update_ref)
     from repro_torch.kernels.flip_corrupt import (flip_corrupt,
                                                   flip_corrupt_ref)
-    from repro_torch.kernels.hdc_encode import hdc_encode, hdc_encode_plain
     from repro_torch.kernels.profile_decode import (profile_decode_scores,
                                                     profile_decode_scores_ref)
     model, h = main["model"], main["h_te"].contiguous()
@@ -1126,8 +1250,6 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     hu = mm["h_tr"][:64].contiguous()
     cu = (symbol_targets(lmodel.codebook, 2)[mm["y_tr"][:64]]
           - hu @ mu.T).contiguous()
-    nu, du = mu.shape
-    bu = hu.shape[0]
     lr = 3e-4
 
     cases = {
@@ -1153,13 +1275,7 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
             library=None,
             bytes=nq * 1 + nq * 4 + 4, ops=nq * (24 * bits + 8),
             op_type="int32"),
-        "bundle_update": dict(
-            kernel=lambda: bundle_update(mu, cu, hu, lr),
-            plain=lambda: bundle_update_ref(mu, cu, hu, lr),
-            library=lambda: F.normalize(torch.addmm(mu, cu.T, hu, alpha=lr),
-                                        dim=-1),
-            bytes=(2 * nu * du + bu * du + bu * nu) * 4,
-            ops=2 * nu * bu * du + 3 * nu * du, op_type="float32"),
+        "bundle_update": update_case(torch, mu, cu, hu, lr),
     }
     # the encoder of path 1's model on a 64-row service bucket of test rows
     enc = model.enc
@@ -1167,19 +1283,11 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
                             for k in ("proj", "bias", "center"))
     x_dev = torch.as_tensor(main["x_te"], device=proj.device)
 
-    def enc_case(rows: int) -> dict:
-        xb = x_dev[:rows].contiguous()
-        f, d_enc = proj.shape
-        return dict(
-            kernel=lambda: hdc_encode(xb, proj, ebias, ecenter, "cos"),
-            plain=lambda: hdc_encode_plain(xb, proj, ebias, ecenter, "cos"),
-            library=lambda: torch.cos(torch.addmm(ebias, xb, proj))
-            * torch.sin(xb @ proj),
-            gemm=lambda: xb @ proj,
-            bytes=(rows * f + f * d_enc + rows * d_enc + 2 * d_enc) * 4,
-            ops=2 * rows * f * d_enc, op_type="float32")
+    def enc_rows(rows: int) -> dict:
+        return enc_case(torch, x_dev[:rows].contiguous(), proj, ebias,
+                        ecenter)
 
-    cases["hdc_encode"] = enc_case(MAX_BATCH)
+    cases["hdc_encode"] = enc_rows(MAX_BATCH)
     out = {}
     for name, cs in cases.items():
         t = {}
@@ -1198,18 +1306,25 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
             f"({cs['bytes']} B, {cs['ops']} ops); per call, CUDA events | "
             f"profiler device time: " + "; ".join(
                 f"{role} {t[role][0]} | {t[role][1]} ms" for role in t))
-    # hdc_encode at one row (a lone request), a bucket and the predict
-    # batch, beside cuBLAS's x @ W alone (the product without the cos / sin
-    # epilogue and the normalisations)
-    for rows in (1, MAX_BATCH, 1559):
-        cs = enc_case(rows)
-        t = {role: (time_ms(torch, cs[role]), device_ms(torch, cs[role]))
-             for role in ("kernel", "plain", "library", "gemm")}
-        b_ms, b_by = bound_ms(rates, cs["bytes"], cs["ops"], cs["op_type"])
-        log(f"time hdc_encode B={rows:<5} bound {b_ms:.5f} ms by {b_by} "
-            f"({cs['bytes']} B, {cs['ops']} flop); CUDA events | profiler "
-            f"device ms: " + "; ".join(
-                f"{role} {t[role][0]} | {t[role][1]}" for role in t))
+
+    # hdc_encode at each of ENC_TIME_ROWS
+    out["hdc_encode"]["shapes"] = [
+        shape_row(torch, rates, (rows, proj.shape[0], proj.shape[1]),
+                  enc_rows(rows), ("kernel", "plain", "library", "gemm"))
+        for rows in ENC_TIME_ROWS]
+    # bundle_update at each matched-memory family's minibatch (the (n, B, D)
+    # its fit ran most), on random bundles, coefficients and queries
+    g = torch.Generator(device=mu.device).manual_seed(3)
+    fam_rows = []
+    for fam, r in mm["families"].items():
+        shape, _ = r["update_shapes"].most_common(1)[0]
+        cs = update_case(torch, *update_inputs(torch, mu.device, g, *shape),
+                         lr)
+        row = shape_row(torch, rates, shape, cs,
+                        ("kernel", "plain", "library"))
+        row["family"] = fam
+        fam_rows.append(row)
+    out["bundle_update"]["shapes"] = fam_rows
     out["loghd_head"] = time_lm_head(torch, lm, rates)
     return out
 
@@ -1275,7 +1390,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],
             "plain_device_ms": t["plain_device_ms"],
-            "library_device_ms": t["library_device_ms"]})
+            "library_device_ms": t["library_device_ms"],
+            **({"shapes": t["shapes"]} if "shapes" in t else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

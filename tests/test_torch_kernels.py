@@ -6,6 +6,8 @@ The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 each of them against these plain versions there.
 """
 
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,10 +29,12 @@ from repro.kernels.profile_decode.ref import \
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.bundle_sim import bundle_similarity
 from repro_torch.kernels.bundle_update import bundle_update, bundle_update_ref
+from repro_torch.kernels.bundle_update import ops as bu_ops
 from repro_torch.kernels.flip_corrupt import flip_corrupt, flip_corrupt_ref
 from repro_torch.kernels.flip_corrupt.ref import _mul32, flip_threshold
 from repro_torch.kernels.hdc_encode import (hdc_encode, hdc_encode_plain,
                                             hdc_encode_ref)
+from repro_torch.kernels.hdc_encode import ops as he_ops
 from repro_torch.hdc.encoders import encode
 from repro_torch.kernels.profile_decode import profile_decode_scores
 
@@ -173,7 +177,8 @@ def test_flip_threshold_matches_reference(p):
 
 # the JAX package's hdc_encode shapes and tolerance (tests/test_kernels.py
 # ENC_SHAPES, rtol 2e-4 / atol 2e-5)
-ENC_SHAPES = [(8, 10, 256), (64, 617, 1024), (100, 75, 2000), (32, 561, 4096)]
+ENC_SHAPES = [(8, 10, 256), (64, 617, 1024), (100, 75, 2000), (32, 561, 4096),
+              (64, 617, 10000)]
 ENC_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
@@ -287,3 +292,109 @@ def test_build_names_every_source_by_hash():
         assert path.parent == _build.BUILD_DIR
         assert path.name.startswith(name + "-") and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# ---- launch geometry of the two redesigned kernels (pure functions of the
+# shapes, computed in Python and checked again by the C entries)
+
+GEO_SHAPES = [(1, 617, 10000), (64, 617, 10000), (1559, 617, 10000),
+              (4096, 617, 10000), (37, 61, 1001), (5, 10, 130),
+              (70, 33, 2004), (65, 1, 81), (3, 617, 40000)]
+
+
+@pytest.mark.parametrize("b,f,d", GEO_SHAPES)
+def test_encode_geometry_covers_every_row_and_column_once(b, f, d):
+    geo = he_ops.encode_geometry(b, f, d)
+    gx, gy = geo.gemm_grid
+    # the product: row blocks of BM rows and column blocks of BN columns,
+    # the last of each ragged and none empty
+    rows = [r for blk in range(gx) for r in range(blk * he_ops.BM,
+                                                  (blk + 1) * he_ops.BM)
+            if r < b]
+    cols = [c for blk in range(gy) for c in range(blk * he_ops.BN,
+                                                  (blk + 1) * he_ops.BN)
+            if c < d]
+    assert rows == list(range(b)) and cols == list(range(d))
+    assert (gx - 1) * he_ops.BM < b and (gy - 1) * he_ops.BN < d
+    assert geo.partial_shape == (b, gy)
+    # the normalisation: each row taken by exactly one cluster, each column
+    # of a row by exactly one block rank
+    taken = sorted(r for c in range(geo.norm_rows)
+                   for r in range(c, b, geo.norm_rows))
+    assert taken == list(range(b))
+    chunks = [d_ for rank in range(geo.cluster)
+              for d_ in range(rank * geo.chunk,
+                              min(d, (rank + 1) * geo.chunk))]
+    assert chunks == list(range(d))
+    assert geo.cluster in (1, 2, 4, 8)
+    assert geo.cluster * geo.norm_rows <= he_ops.NORM_MAX_BLOCKS
+    # what the C entry checks, and what the card allows
+    assert geo.gemm_threads == he_ops.THREADS == 512
+    assert geo.smem_bytes == he_ops.SMEM_BYTES <= 227 * 1024
+    assert geo.stages == he_ops.STAGES and geo.norm_threads == 256
+
+
+@pytest.mark.parametrize("f,d", [(617, 10000), (61, 1001), (10, 130),
+                                 (33, 2004)])
+def test_encode_summation_order_does_not_depend_on_b(f, d):
+    """Everything that fixes an element's sum (the column tile, the
+    compiled tiles and stages, a grid with no split-K dimension) and a
+    row's sums of squares (the column blocks, the cluster and its chunks)
+    is the same for every B; only the row dimensions grow with B."""
+    bs = (1, 2, 63, 64, 65, 1559, 4096)
+    geos = [he_ops.encode_geometry(b, f, d) for b in bs]
+    keys = {(g.gemm_grid[1], g.partial_shape[1], g.cluster, g.chunk,
+             g.gemm_threads, g.smem_bytes, g.stages) for g in geos}
+    assert len(keys) == 1
+    assert all(len(g.gemm_grid) == 2 for g in geos)
+    assert [g.gemm_grid[0] for g in geos] == [-(-b // he_ops.BM) for b in bs]
+
+
+def test_encode_geometry_raises_where_grid_cannot_launch():
+    assert he_ops.MAX_ROWS + he_ops.NORM_MAX_BLOCKS <= 2**31 - 1
+    he_ops.encode_geometry(he_ops.MAX_ROWS, 617, 80)
+    with pytest.raises(ValueError, match="rows exceed"):
+        he_ops.encode_geometry(he_ops.MAX_ROWS + 1, 617, 80)
+    with pytest.raises(ValueError, match="column blocks"):
+        he_ops.encode_geometry(4, 8, 65536 * he_ops.BN)
+
+
+UPD_GEO = [(10, 64, 10000), (20, 64, 10000), (26, 64, 4000),
+           (26, 256, 10000), (40, 37, 1000), (3, 7, 130), (100, 64, 10000),
+           (33, 1, 65)]
+
+
+@pytest.mark.parametrize("n,b,d", UPD_GEO)
+@pytest.mark.parametrize("capacity", [1, 37, 264, 396, 10**6])
+def test_update_tiles_cover_every_entry_once(n, b, d, capacity):
+    geo = bu_ops.update_geometry(n, b, d)
+    blocks = bu_ops.launch_blocks(geo, capacity)
+    assert blocks == min(geo.tiles, capacity) >= 1
+    assert geo.kj % 4 == 0 and min(n, 4) <= geo.kj <= bu_ops.MAX_KJ
+    assert geo.kj >= min(n, bu_ops.MAX_KJ)
+    assert geo.partial_shape == (n, geo.col_blocks)
+    assert geo.threads == bu_ops.THREADS == 256
+    # block k walks tiles k, k + blocks, ...; tile t is column block
+    # t % col_blocks of row chunk t // col_blocks
+    seen = collections.Counter()
+    for k in range(blocks):
+        for t in range(k, geo.tiles, blocks):
+            cb, j0 = t % geo.col_blocks, t // geo.col_blocks * geo.kj
+            for j in range(j0, min(n, j0 + geo.kj)):
+                seen[(j, cb)] += 1
+    assert seen == {(j, cb): 1 for j in range(n)
+                    for cb in range(geo.col_blocks)}
+    assert (geo.col_blocks - 1) * bu_ops.COLS < d
+    assert d <= geo.col_blocks * bu_ops.COLS
+
+
+def test_update_geometry_does_not_depend_on_b():
+    assert len({bu_ops.update_geometry(10, b, 10000)
+                for b in (1, 30, 64, 256, 4096)}) == 1
+
+
+def test_update_raises_where_the_grid_cannot_be_launched():
+    geo = bu_ops.update_geometry(10, 64, 10000)
+    for capacity in (0, -2):
+        with pytest.raises(RuntimeError, match="occupancy"):
+            bu_ops.launch_blocks(geo, capacity)
