@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the ``hdc_encode`` and ``bundle_update`` kernels of other checkouts
-beside this checkout's, on one NVIDIA Hopper card, in one call.
+"""Time the ``bundle_sim``, ``hdc_encode`` and ``bundle_update`` kernels of
+other checkouts beside this checkout's, on one NVIDIA Hopper card, in one
+call.
 
 Run from the root of a checkout, with one card visible:
 
@@ -10,14 +11,20 @@ Run from the root of a checkout, with one card visible:
 
 Each argument is the root of another checkout of this repo.  Every
 checkout runs in a process of its own, which builds that checkout's
-kernels and times them through its public wrappers, ``hdc_encode(x, proj,
-bias, center, kind)`` and ``bundle_update(m, c, h, lr)``, with this
-checkout's ``chip_smoke.py`` inputs, cases, bounds and timers (its
-``shape_row``: device time per call from ``torch.profiler`` after warm-up,
-beside the plain version, the library call and, for ``hdc_encode``,
-cuBLAS's ``x @ W``).  The processes run the other checkouts, this one
+kernels and times them through its public wrappers,
+``bundle_similarity(h, m)``, ``hdc_encode(x, proj, bias, center, kind)``
+and ``bundle_update(m, c, h, lr)``, with this checkout's ``chip_smoke.py``
+inputs, cases, bounds and timers (its ``shape_row``: device time per call
+from ``torch.profiler`` after warm-up, beside the plain version, the
+library call, for ``bundle_sim`` also ``(h @ m.T) * rsqrt(||h||^2 +
+1e-12)``, for ``hdc_encode`` also cuBLAS's ``x @ W``).  The processes run the other checkouts, this one
 twice, then the other checkouts in reverse, so drift on the card shows as
-the gap between a checkout's two runs.  Shapes: ``hdc_encode`` at
+the gap between a checkout's two runs.  Each row also gives
+``host_enqueue_us``, the host time a call of the wrapper takes to return
+when calls run back to back (the launch path's cost in a host-bound loop).
+Shapes: ``bundle_sim`` at
+``chip_smoke.BS_TIME_SHAPES`` (B = 1, 64, 1,559 against n = 10 and 26
+bundles, D = 10,000, float32), ``hdc_encode`` at
 ``chip_smoke.ENC_TIME_ROWS`` rows of isolet width (F = 617, D = 10,000),
 ``bundle_update`` at each matched-memory family's minibatch (n, B, D).
 Prints one JSON line per process and shape, then the card's name and
@@ -31,6 +38,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -41,6 +49,21 @@ ENC_F, ENC_D = 617, 10000
 UPD_SHAPES = [(10, 64, 10000), (20, 64, 10000), (26, 64, 4000),
               (26, 256, 10000)]
 LR = 3e-4
+
+
+def host_us(torch, fn, calls: int = 400) -> float:
+    """Host microseconds a call of fn takes to return, calls back to back
+    with no synchronisation (the wrapper's own cost while the device keeps
+    up)."""
+    for _ in range(40):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def time_checkout(checkout: Path) -> None:
@@ -59,6 +82,7 @@ def time_checkout(checkout: Path) -> None:
 
     def emit(kernel: str, shape, case: dict, roles) -> None:
         row = cs.shape_row(torch, rates, shape, case, roles)
+        row["host_enqueue_us"] = host_us(torch, case["kernel"])
         # the kernel's device time by launch (the normalisation apart): each
         # launch's mean time, as device_ms counts it
         cs.warm(torch, case["kernel"])
@@ -69,6 +93,10 @@ def time_checkout(checkout: Path) -> None:
         print(json.dumps({"checkout": name, "kernel": kernel, **row}),
               flush=True)
 
+    for shape in cs.BS_TIME_SHAPES:
+        h, m = cs.bs_inputs(torch, dev, g, *shape)
+        emit("bundle_sim", shape, cs.bs_case(torch, h, m),
+             ("kernel", "plain", "library", "library_rsqrt"))
     for rows in cs.ENC_TIME_ROWS:
         x, w, bias, center = cs.enc_inputs(torch, dev, g, rows, ENC_F, ENC_D)
         emit("hdc_encode", (rows, ENC_F, ENC_D),

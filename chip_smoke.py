@@ -37,7 +37,10 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    tokens, 4 slots, 16 new tokens, ``max_len`` 256, greedy) in bfloat16,
    once with the loghd head and once with the dense head.
 
-It checks each path's launch counts, that fits repeat bit for bit (the
+It checks each kernel against its plain version (``bundle_sim`` also at the
+serving shapes, with rows bitwise equal at B = 1, 64 and 1,559 and two
+launches equal), each path's launch counts (``bundle_sim``'s split into
+serving-bucket and full-batch calls), that fits repeat bit for bit (the
 LogHD repeat with TF32 turned on globally, watching that every matmul of
 the fit runs in full float32), that kernel and plain predict and training
 agree, that each sweep's p=0 row equals the clean accuracy of the
@@ -52,8 +55,11 @@ and a library call with CUDA events.
 
 Output: the serving rates and latencies, the LM's tokens/s and the wall,
 device time and idle share of one decode step, a JSON line with one entry per
-kernel (``hdc_encode`` with its device times at B = 1, 64 and 1,559 and
-``bundle_update`` at each family's minibatch under ``shapes``), the card's
+kernel (``bundle_sim`` at B = 1, 64, 1,559 against n = 10 and 26 bundles,
+``hdc_encode`` at B = 1, 64 and 1,559 and ``bundle_update`` at each
+family's minibatch under ``shapes``; ``bundle_sim``'s launches by batch
+under ``launches_by_batch``), the number of rows whose kernel label
+differs from the plain route's beside each agreement share, the card's
 name and power limit as ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the exit code is not 0; without a CUDA device, or outside a
@@ -226,6 +232,17 @@ def profile_calls(torch, fn, calls: int = 10):
     return busy, count, top
 
 
+def bundle_sim_batches() -> dict:
+    """bundle_sim's launches since the last reset, split into serving-bucket
+    calls (at most MAX_BATCH rows) and larger ones."""
+    from repro_torch.kernels import common
+    out = {"bucket": 0, "full": 0}
+    for (name, rows), c in common.launch_rows.items():
+        if name == "bundle_sim":
+            out["bucket" if rows <= MAX_BATCH else "full"] += c
+    return out
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
@@ -245,9 +262,12 @@ def phase_kernels(torch, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     errs = {}
     # the predict shapes of the four families: LogHD (n=10), conventional
-    # (C=26), SparseHD at budget 0.4 (D'=4000), hybrid (n=20, D'=5200)
+    # (C=26), SparseHD at budget 0.4 (D'=4000), hybrid (n=20, D'=5200); the
+    # serving shapes: a lone request and a full bucket of LogHD and of the
+    # conventional model; then ragged shapes and n > 32
     for (b, d, n) in [(1559, 10000, 10), (1559, 10000, 26), (1559, 4000, 26),
-                      (1559, 5200, 20), (37, 1000, 3), (64, 1000, 40),
+                      (1559, 5200, 20), (1, 10000, 10), (64, 10000, 10),
+                      (64, 10000, 26), (37, 1000, 3), (64, 1000, 40),
                       (37, 617, 5)]:
         for dtype in (torch.float32, torch.bfloat16):
             h = torch.randn((b, d), generator=g, device=dev).to(dtype)
@@ -263,6 +283,7 @@ def phase_kernels(torch, dev) -> dict:
             torch.testing.assert_close(got, want, rtol=tol, atol=tol)
             if (b, d, n) == (1559, 10000, 10) and dtype == torch.float32:
                 errs["bundle_sim"] = err
+    check_bundle_sim_rows(torch, dev, g)
     for (b, n, c) in [(1559, 10, 26), (37, 7, 45), (100, 40, 70)]:
         for dtype in (torch.float32, torch.bfloat16):
             a = torch.randn((b, n), generator=g, device=dev).to(dtype)
@@ -327,6 +348,41 @@ def phase_kernels(torch, dev) -> dict:
             errs["bundle_update"] = err
     errs["hdc_encode"] = check_hdc_encode(torch, dev, g)
     return errs
+
+
+def check_bundle_sim_rows(torch, dev, g) -> None:
+    """bundle_sim rows have the same bits at B = 1, 64 and 1,559 (each row's
+    sums run in an order fixed by D and n), and two launches give equal
+    bits: at D = 10,000 for the LogHD (n = 10) and conventional (n = 26)
+    bundles, in float32 and bfloat16."""
+    from repro_torch.hdc.conventional import l2_normalize
+    from repro_torch.kernels.bundle_sim import bundle_similarity
+    for n in (10, 26):
+        m = l2_normalize(torch.randn((n, 10000), generator=g, device=dev))
+        for dtype in (torch.float32, torch.bfloat16):
+            h = torch.randn((1559, 10000), generator=g, device=dev).to(dtype)
+            full = bundle_similarity(h, m)
+            again = bundle_similarity(h, m)
+            b64 = bundle_similarity(h[:64].contiguous(), m)
+            b1 = torch.cat([bundle_similarity(h[i:i + 1].contiguous(), m)
+                            for i in range(64)])
+            torch.cuda.synchronize()
+            check(torch.equal(full, again),
+                  f"bundle_sim (1559, 10000, {n}) {dtype}: two launches "
+                  f"differ")
+            check(torch.equal(full[:64], b64) and torch.equal(full[:64], b1),
+                  f"bundle_sim (10000, {n}) {dtype}: a row's bits depend "
+                  f"on the batch (B = 1559, 64, 1)")
+    log("bundle_sim: rows 0-63 bitwise equal at B = 1, 64, 1559 and two "
+        "launches equal, n = 10 and 26, float32 and bfloat16")
+    from repro_torch.kernels.bundle_sim import ops as bs_ops
+    for (b, d, n) in BS_TIME_SHAPES:
+        kc, chunk, cluster, clusters, chunks, tiles, stages, smem = (
+            bs_ops._launch_args(torch.cuda.current_device(), b, d, n, False))
+        log(f"bundle_sim launch at ({b}, {d}, {n}) float32: {clusters} "
+            f"clusters of {cluster} blocks x {chunks} bundle chunks of {kc}, "
+            f"{tiles} row tiles, chunk {chunk} columns, {stages} stages, "
+            f"{smem} bytes of shared memory a block")
 
 
 def enc_inputs(torch, dev, g, b: int, f: int, d: int):
@@ -432,7 +488,8 @@ def phase_main_path(torch, dev) -> dict:
         sweep_s += time.perf_counter() - t0
         sweeps[bits] = (accs, common.launches["flip_corrupt"] - before)
     launches = dict(common.launches)
-    log(f"main path launches: {launches}")
+    batches = bundle_sim_batches()
+    log(f"main path launches: {launches}; bundle_sim {batches}")
 
     # checks, after the counts were read
     check(labels.shape == (len(x_te),), "predict shape")
@@ -447,8 +504,9 @@ def phase_main_path(torch, dev) -> dict:
           f"the path, not {want_enc}")
     plain = dispatch.predict_encoded(model, h_te, use_kernels=False)
     agree = float((plain == labels).float().mean())
+    n_diff = int((plain != labels).sum())
     log(f"clean accuracy {acc:.4f}; kernel vs plain labels agree on "
-        f"{agree:.5f} of {len(x_te)} rows")
+        f"{agree:.5f} of {len(x_te)} rows ({n_diff} rows differ)")
     check(agree >= 0.999, f"kernel and plain labels agree on only {agree}")
 
     clf2 = make_classifier("loghd", spec.n_classes, spec.n_features, **kw)
@@ -475,7 +533,8 @@ def phase_main_path(torch, dev) -> dict:
               f"bits={bits}: flip_corrupt launched {n_flip} times, not {want}")
     log(f"wall: fit {fit_s:.3f} s, predict {predict_s:.3f} s "
         f"(encode + kernels), sweeps {sweep_s:.3f} s")
-    return {"launches": launches, "model": model, "h_te": h_te,
+    return {"launches": launches, "bs_batches": batches, "model": model,
+            "h_te": h_te,
             "x_te": x_te, "acc": acc, "fit_s": fit_s,
             "predict_s": predict_s, "sweep_s": sweep_s}
 
@@ -592,8 +651,8 @@ def phase_matched_memory(torch, dev) -> dict:
         launches = dict(common.launches)
         out[name] = dict(clf=clf, labels=labels, accs=accs, fit_s=fit_s,
                          predict_s=predict_s, sweep_s=sweep_s,
-                         launches=launches, want_steps=want_steps,
-                         update_shapes=shapes)
+                         launches=launches, bs_batches=bundle_sim_batches(),
+                         want_steps=want_steps, update_shapes=shapes)
         log(f"{name:<12} fit {fit_s:.3f} s, predict {predict_s:.4f} s, "
             f"1-bit sweep {sweep_s:.3f} s; launches {launches}; minibatch "
             f"(n, B, D): {dict(shapes)}")
@@ -620,11 +679,13 @@ def phase_matched_memory(torch, dev) -> dict:
         acc = float((r["labels"] == y_dev).float().mean())
         plain = dispatch.predict_encoded(model, h_te, use_kernels=False)
         agree = float((plain == r["labels"]).float().mean())
+        n_diff = int((plain != r["labels"]).sum())
         qacc = float((dispatch.predict_encoded(model.quantized(1), h_te)
                       == y_dev).float().mean())
         r.update(acc=acc, agree=agree, qacc=qacc)
         log(f"{name:<12} accuracy {acc:.4f} (1-bit quantized {qacc:.4f}); "
-            f"kernel vs plain labels agree on {agree:.5f}; memory "
+            f"kernel vs plain labels agree on {agree:.5f} ({n_diff} of "
+            f"{len(plain)} rows differ); memory "
             f"{model.model_bits(1)} bits at 1 bit; 1-bit sweep (rows p, "
             f"columns trials, scope hv):")
         for p, row in zip(P_GRID, r["accs"]):
@@ -677,12 +738,14 @@ def phase_matched_memory(torch, dev) -> dict:
     plain_model = loghd.model.replace(
         bundles=plain50,
         profiles=estimate_profiles(plain50, h_tr, y_tr_dev, spec.n_classes))
-    agree50 = float((dispatch.predict_encoded(plain_model, h_te)
-                     == out["loghd"]["labels"]).float().mean())
+    labels50 = dispatch.predict_encoded(plain_model, h_te)
+    agree50 = float((labels50 == out["loghd"]["labels"]).float().mean())
+    diff50 = int((labels50 != out["loghd"]["labels"]).sum())
     err50 = max_err(loghd.model.bundles, plain50)
     log(f"LogHD refinement, kernel vs plain steps: max abs diff "
         f"{err2:.3e} after 2 epochs, {err50:.3e} after "
-        f"{cfg.refine_epochs}; labels agree on {agree50:.5f}")
+        f"{cfg.refine_epochs}; labels agree on {agree50:.5f} ({diff50} of "
+        f"{len(labels50)} rows differ)")
     check(agree50 >= 0.999, f"refinement kernel vs plain labels agree on "
           f"only {agree50}")
     return dict(families=out, h_tr=h_tr, y_tr=y_tr_dev,
@@ -774,10 +837,11 @@ def phase_serving(torch, dev, main: dict, mm: dict) -> dict:
     svc.shutdown(drain=True, timeout=120.0)
     torch.cuda.synchronize()
     launches = dict(common.launches)
+    batches = bundle_sim_batches()
     cycles = svc.queue.cycles - cycles0
     stats = svc.stats()
-    log(f"serve path launches: {launches}; {cycles} cycles, "
-        f"{enc_cycles} of them encoded-input")
+    log(f"serve path launches: {launches}; bundle_sim {batches}; {cycles} "
+        f"cycles, {enc_cycles} of them encoded-input")
 
     # the device's share of one closed loop (profiled apart, not counted)
     with profile(activities=[ProfilerActivity.CPU,
@@ -847,8 +911,8 @@ def phase_serving(torch, dev, main: dict, mm: dict) -> dict:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:90]}")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    return dict(launches=launches, closed=closed, opened=opened,
-                cycles=cycles, raw_cycles=raw_cycles)
+    return dict(launches=launches, bs_batches=batches, closed=closed,
+                opened=opened, cycles=cycles, raw_cycles=raw_cycles)
 
 
 def lm_config(dtype: str = None):
@@ -1179,6 +1243,32 @@ def enc_case(torch, x, proj, bias, center) -> dict:
         ops=2 * rows * f * d, op_type="tf32x3")
 
 
+def bs_inputs(torch, dev, g, b: int, d: int, n: int):
+    """Queries h (B, D) standard normal, unit bundles m (n, D)."""
+    from repro_torch.hdc.conventional import l2_normalize
+    h = torch.randn((b, d), generator=g, device=dev)
+    m = l2_normalize(torch.randn((n, d), generator=g, device=dev))
+    return h, m
+
+
+def bs_case(torch, h, m) -> dict:
+    """bundle_sim's roles on one input: the kernel, its plain version, two
+    library forms (``F.normalize(h) @ m.T`` and ``(h @ m.T) * rsqrt(||h||^2
+    + 1e-12)``); its bytes and flops."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.bundle_sim import (bundle_similarity,
+                                                bundle_similarity_ref)
+    (b, d), n = h.shape, m.shape[0]
+    return dict(
+        kernel=lambda: bundle_similarity(h, m),
+        plain=lambda: bundle_similarity_ref(h, m),
+        library=lambda: F.normalize(h, dim=-1) @ m.T,
+        library_rsqrt=lambda: (h @ m.T) * torch.rsqrt(
+            (h * h).sum(-1, keepdim=True) + 1e-12),
+        bytes=b * d * h.element_size() + n * d * 4 + b * n * 4,
+        ops=2 * b * d * n + 2 * b * d, op_type="float32")
+
+
 def update_inputs(torch, dev, g, n: int, b: int, d: int):
     """Unit bundles m (n, D), small coefficients c (B, n), unit queries h
     (B, D)."""
@@ -1221,15 +1311,16 @@ def shape_row(torch, rates: dict, shape, cs: dict, roles) -> dict:
 # hdc_encode's timed batches: one row (a lone request), a service bucket,
 # the predict batch
 ENC_TIME_ROWS = (1, MAX_BATCH, 1559)
+# bundle_sim's timed shapes (B, D, n): the same batches against the LogHD
+# (n = 10) and the conventional (n = 26) bundles of isolet
+BS_TIME_SHAPES = [(b, 10000, n) for n in (10, 26) for b in ENC_TIME_ROWS]
 
 
 def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     """Kernel, plain and library times at the main paths' shapes."""
-    import torch.nn.functional as F
     from repro_torch.core.bundling import symbol_targets
     from repro_torch.hdc.conventional import l2_normalize
-    from repro_torch.kernels.bundle_sim import (bundle_similarity,
-                                                bundle_similarity_ref)
+    from repro_torch.kernels.bundle_sim import bundle_similarity
     from repro_torch.kernels.flip_corrupt import (flip_corrupt,
                                                   flip_corrupt_ref)
     from repro_torch.kernels.profile_decode import (profile_decode_scores,
@@ -1253,12 +1344,7 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     lr = 3e-4
 
     cases = {
-        "bundle_sim": dict(
-            kernel=lambda: bundle_similarity(h, m),
-            plain=lambda: bundle_similarity_ref(h, m),
-            library=lambda: F.normalize(h, dim=-1) @ m.T,
-            bytes=b * d * 4 + n * d * 4 + b * n * 4,
-            ops=2 * b * d * n + 2 * b * d, op_type="float32"),
+        "bundle_sim": bs_case(torch, h, m),
         "profile_decode": dict(
             kernel=lambda: profile_decode_scores(acts, prof),
             plain=lambda: profile_decode_scores_ref(acts, prof),
@@ -1312,9 +1398,15 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
         shape_row(torch, rates, (rows, proj.shape[0], proj.shape[1]),
                   enc_rows(rows), ("kernel", "plain", "library", "gemm"))
         for rows in ENC_TIME_ROWS]
+    # bundle_sim at each of BS_TIME_SHAPES, on random queries and bundles
+    g = torch.Generator(device=mu.device).manual_seed(3)
+    out["bundle_sim"]["shapes"] = [
+        shape_row(torch, rates, shape,
+                  bs_case(torch, *bs_inputs(torch, mu.device, g, *shape)),
+                  ("kernel", "plain", "library", "library_rsqrt"))
+        for shape in BS_TIME_SHAPES]
     # bundle_update at each matched-memory family's minibatch (the (n, B, D)
     # its fit ran most), on random bundles, coefficients and queries
-    g = torch.Generator(device=mu.device).manual_seed(3)
     fam_rows = []
     for fam, r in mm["families"].items():
         shape, _ = r["update_shapes"].most_common(1)[0]
@@ -1376,6 +1468,18 @@ def main() -> int:
     by_path["serve"] = serve["launches"]
     by_path.update({f"lm_serve_{head}": lm[head]["launches"]
                     for head in ("loghd", "dense")})
+    # bundle_sim's launches of each path, in serving buckets (at most
+    # MAX_BATCH rows) and in larger batches
+    none = {"bucket": 0, "full": 0}
+    bs_batches = {"loghd_refine_off": main_run["bs_batches"],
+                  "matched_memory_encoder": none}
+    bs_batches.update({f"matched_memory_{name}": r["bs_batches"]
+                       for name, r in mm["families"].items()})
+    bs_batches["serve"] = serve["bs_batches"]
+    bs_batches.update({f"lm_serve_{head}": none for head in ("loghd", "dense")})
+    for p, c in bs_batches.items():
+        check(c["bucket"] + c["full"] == by_path[p].get("bundle_sim", 0),
+              f"{p}: bundle_sim batches {c} do not sum to its launches")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
@@ -1391,6 +1495,12 @@ def main() -> int:
             "device_ms": t["device_ms"],
             "plain_device_ms": t["plain_device_ms"],
             "library_device_ms": t["library_device_ms"],
+            **({"launches_by_batch": {
+                f"bucket (<= {MAX_BATCH} rows)": {
+                    p: c["bucket"] for p, c in bs_batches.items()},
+                f"full (> {MAX_BATCH} rows)": {
+                    p: c["full"] for p, c in bs_batches.items()}}}
+               if name == "bundle_sim" else {}),
             **({"shapes": t["shapes"]} if "shapes" in t else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -28,6 +28,7 @@ from repro.kernels.profile_decode.ref import \
     profile_decode_scores_ref as jax_pd_ref
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.bundle_sim import bundle_similarity
+from repro_torch.kernels.bundle_sim import ops as bs_ops
 from repro_torch.kernels.bundle_update import bundle_update, bundle_update_ref
 from repro_torch.kernels.bundle_update import ops as bu_ops
 from repro_torch.kernels.flip_corrupt import flip_corrupt, flip_corrupt_ref
@@ -53,7 +54,8 @@ def _pair(x: np.ndarray, dtype: str):
     return t, j
 
 
-@pytest.mark.parametrize("b,d,n", [(8, 256, 4), (33, 617, 5), (16, 1000, 40)])
+@pytest.mark.parametrize("b,d,n", [(8, 256, 4), (33, 617, 5), (16, 1000, 40),
+                                   (1, 10000, 10), (64, 10000, 26)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bundle_sim_plain_matches_jax(b, d, n, dtype):
     rng = np.random.default_rng(b + d + n)
@@ -398,3 +400,110 @@ def test_update_raises_where_the_grid_cannot_be_launched():
     for capacity in (0, -2):
         with pytest.raises(RuntimeError, match="occupancy"):
             bu_ops.launch_blocks(geo, capacity)
+
+
+# ---- bundle_sim's launch geometry: a thread-block cluster splits each row
+# along D; only the clusters grow with B
+
+BS_GEO = [(b, d, n) for b in (1, 64, 1559)
+          for d in (10000, 4000, 5200, 617, 1000)
+          for n in (3, 10, 20, 26, 40)]
+
+
+@pytest.mark.parametrize("b,d,n", BS_GEO)
+def test_bundle_sim_geometry_covers_every_row_column_bundle_once(b, d, n):
+    geo = bs_ops.bundle_sim_geometry(b, d, n, 15)
+    assert geo.grid == (geo.cluster * geo.clusters, geo.bundle_chunks)
+    # rows: cluster c walks the tiles c, c + clusters, ... of ROWS rows
+    rows = collections.Counter(
+        r for c in range(geo.clusters)
+        for tile in range(c, geo.tiles, geo.clusters)
+        for r in range(tile * geo.rows, min(b, (tile + 1) * geo.rows)))
+    assert rows == collections.Counter(range(b))
+    assert geo.rows == bs_ops.ROWS and (geo.tiles - 1) * geo.rows < b
+    # columns: rank r owns [r chunk, (r + 1) chunk); in pass p warp w takes
+    # 32 w + 16 half + 4 t + e (t, e < 4) of the pass's PASS columns
+    cols = collections.Counter(
+        col for r in range(geo.cluster) for p in range(geo.passes)
+        for w in range(bs_ops.PASS // 32) for half in range(2)
+        for t in range(4) for e in range(4)
+        for col in [r * geo.chunk + p * bs_ops.PASS + 32 * w + 16 * half
+                    + 4 * t + e] if col < d)
+    assert cols == collections.Counter(range(d))
+    assert geo.chunk == geo.passes * bs_ops.PASS
+    assert (geo.cluster - 1) * geo.chunk < d <= geo.cluster * geo.chunk
+    assert 1 <= geo.cluster <= bs_ops.MAX_CLUSTER
+    # bundles: grid-y chunk y holds [y kc, (y + 1) kc)
+    bundles = collections.Counter(
+        j for y in range(geo.bundle_chunks)
+        for j in range(y * geo.kc, min(n, (y + 1) * geo.kc)))
+    assert bundles == collections.Counter(range(n))
+    assert geo.kc in bs_ops.KC_SIZES and (geo.bundle_chunks - 1) * geo.kc < n
+    assert geo.threads == bs_ops.THREADS
+
+
+@pytest.mark.parametrize("d,n", [(10000, 10), (10000, 26), (4000, 26),
+                                 (5200, 20), (1000, 40), (617, 5),
+                                 (40000, 26)])
+def test_bundle_sim_summation_order_does_not_depend_on_b(d, n):
+    """Everything that fixes a row's sums (the cluster and its chunks, the
+    passes, the bundle chunks, the compiled kernel and its stages) is the
+    same for every B; only the clusters of the grid's x grow with B."""
+    bs = (1, 2, 63, 64, 65, 1559, 4096)
+    cap = 15
+    geos = [bs_ops.bundle_sim_geometry(b, d, n, cap) for b in bs]
+    keys = {(g.cluster, g.chunk, g.passes, g.rows, g.kc, g.bundle_chunks,
+             g.stages, g.smem_bytes, g.threads, g.grid[1]) for g in geos}
+    assert len(keys) == 1
+    assert [g.grid[0] for g in geos] == [
+        geos[0].cluster * min(-(-b // bs_ops.ROWS), cap) for b in bs]
+
+
+def test_bundle_sim_geometry_raises_where_it_cannot_launch():
+    with pytest.raises(ValueError, match="B, D, n >= 1"):
+        bs_ops.bundle_sim_geometry(0, 10000, 10)
+    with pytest.raises(ValueError, match="B, D, n >= 1"):
+        bs_ops.bundle_sim_geometry(4, 10000, 0)
+    bs_ops.bundle_sim_geometry(bs_ops.MAX_ROWS, 256, 3)
+    with pytest.raises(ValueError, match="rows exceed"):
+        bs_ops.bundle_sim_geometry(bs_ops.MAX_ROWS + 1, 256, 3)
+    # a chunk of M too large for a block's shared memory even at 8 bundles
+    with pytest.raises(ValueError, match="shared memory"):
+        bs_ops.bundle_sim_geometry(4, 50000, 3)
+    with pytest.raises(ValueError, match="bundle chunks"):
+        bs_ops.bundle_sim_geometry(4, 10000, 32 * 65535 + 1)
+    for cap in (0, -2):
+        with pytest.raises(RuntimeError, match="clusters"):
+            bs_ops.bundle_sim_geometry(4, 10000, 10, cap)
+
+
+@pytest.mark.parametrize("d", [256, 617, 1000, 4000, 5200, 10000, 20000,
+                               40000])
+def test_bundle_sim_shared_memory_fits_at_every_n(d):
+    for n in range(1, 2 * bs_ops.KC_SIZES[-1] + 1):
+        geo = bs_ops.bundle_sim_geometry(64, d, n, 15)
+        assert 2 <= geo.stages <= bs_ops.MAX_STAGES
+        assert geo.smem_bytes == bs_ops.smem_bytes(geo.kc, geo.chunk,
+                                                   geo.stages)
+        assert geo.smem_bytes <= bs_ops.SMEM_MAX < 227 * 1024
+    # the serving and predict shapes keep at least 3 stages in flight
+    if d <= 10000:
+        assert bs_ops.bundle_sim_geometry(64, d, 26, 15).stages >= 3
+
+
+def test_bundle_sim_geometry_matches_the_compiled_kernel():
+    """The constants ops.py computes with are the ones csrc/bundle_sim.cu
+    compiles."""
+    src = (_build.CSRC / "bundle_sim.cu").read_text()
+    assert "constexpr int kConsumers = 256;" in src
+    assert "constexpr int kThreads = kConsumers + 32;" in src
+    assert bs_ops.THREADS == 256 + 32
+    assert "constexpr int kRows = 16;" in src and bs_ops.ROWS == 16
+    assert "constexpr int kPass = kWarps * 32;" in src
+    assert bs_ops.PASS == (256 // 32) * 32
+    assert f"constexpr int kMaxCluster = {bs_ops.MAX_CLUSTER};" in src
+    assert f"constexpr int kMaxStages = {bs_ops.MAX_STAGES};" in src
+    assert "constexpr int kSmemMax = 232448 - 128;" in src
+    assert bs_ops.SMEM_MAX == 232448 - 128
+    assert ("#define BS_BUNDLES(X) "
+            + " ".join(f"X({k})" for k in bs_ops.KC_SIZES)) in src
