@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Time the ``bundle_sim``, ``hdc_encode`` and ``bundle_update`` kernels of
-other checkouts beside this checkout's, on one NVIDIA Hopper card, in one
-call.
+"""Time the kernels of other checkouts beside this checkout's, on one
+NVIDIA Hopper card, in one call.
 
 Run from the root of a checkout, with one card visible:
 
@@ -12,23 +11,30 @@ Run from the root of a checkout, with one card visible:
 Each argument is the root of another checkout of this repo.  Every
 checkout runs in a process of its own, which builds that checkout's
 kernels and times them through its public wrappers,
-``bundle_similarity(h, m)``, ``hdc_encode(x, proj, bias, center, kind)``
-and ``bundle_update(m, c, h, lr)``, with this checkout's ``chip_smoke.py``
+``bundle_similarity(h, m)``, ``hdc_encode(x, proj, bias, center, kind)``,
+``bundle_update(m, c, h, lr)``, ``profile_decode_scores(acts, profiles)``
+and ``loghd_head_logits(h, m, p)``, with this checkout's ``chip_smoke.py``
 inputs, cases, bounds and timers (its ``shape_row``: device time per call
 from ``torch.profiler`` after warm-up, beside the plain version, the
 library call, for ``bundle_sim`` also ``(h @ m.T) * rsqrt(||h||^2 +
-1e-12)``, for ``hdc_encode`` also cuBLAS's ``x @ W``).  The processes run the other checkouts, this one
+1e-12)``, for ``hdc_encode`` also cuBLAS's ``x @ W``).  ``profile_decode``
+and ``loghd_head`` rows add ``span_ms``, a call's span in a CUDA graph
+(``chip_smoke.graph_span_ms``: a kernel pair chained by programmatic
+dependent launch counts once); a ``pair`` row gives the span of
+``bundle_sim`` followed by ``profile_decode`` at chip_smoke's chain shapes
+(the chained launch where the checkout has one, and with it off), beside
+each kernel's span alone.  The processes run the other checkouts, this one
 twice, then the other checkouts in reverse, so drift on the card shows as
 the gap between a checkout's two runs.  Each row also gives
 ``host_enqueue_us``, the host time a call of the wrapper takes to return
 when calls run back to back (the launch path's cost in a host-bound loop).
-Shapes: ``bundle_sim`` at
-``chip_smoke.BS_TIME_SHAPES`` (B = 1, 64, 1,559 against n = 10 and 26
-bundles, D = 10,000, float32), ``hdc_encode`` at
+Shapes: ``bundle_sim`` at ``chip_smoke.BS_TIME_SHAPES``, ``hdc_encode`` at
 ``chip_smoke.ENC_TIME_ROWS`` rows of isolet width (F = 617, D = 10,000),
-``bundle_update`` at each matched-memory family's minibatch (n, B, D).
-Prints one JSON line per process and shape, then the card's name and
-power limit.
+``bundle_update`` at each matched-memory family's minibatch (n, B, D),
+``profile_decode`` at ``chip_smoke.PD_SHAPES`` (float32) and
+``loghd_head`` at B = 4 and 512 of qwen3-1.7b's head (D = 2,048, n = 20,
+V = 151,936; bf16 h and M, bf16 and float32 P).  Prints one JSON line per
+process and shape, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -80,8 +86,9 @@ def time_checkout(checkout: Path) -> None:
     g = torch.Generator(device=dev).manual_seed(0)
     name = os.path.relpath(checkout, ROOT)
 
-    def emit(kernel: str, shape, case: dict, roles) -> None:
+    def emit(kernel: str, shape, case: dict, roles, **extra) -> None:
         row = cs.shape_row(torch, rates, shape, case, roles)
+        row.update(extra)
         row["host_enqueue_us"] = host_us(torch, case["kernel"])
         # the kernel's device time by launch (the normalisation apart): each
         # launch's mean time, as device_ms counts it
@@ -106,6 +113,83 @@ def time_checkout(checkout: Path) -> None:
         m, c, h = cs.update_inputs(torch, dev, g, *shape)
         emit("bundle_update", shape, cs.update_case(torch, m, c, h, LR),
              ("kernel", "plain", "library"))
+    for (b, n, c) in cs.PD_SHAPES:
+        case = cs.pd_case(torch, torch.randn((b, n), generator=g, device=dev),
+                          torch.randn((c, n), generator=g, device=dev))
+        emit("profile_decode", (b, n, c), case,
+             ("kernel", "plain", "library"),
+             span_ms=cs.graph_span_ms(torch, case["kernel"]))
+    time_pairs(torch, cs, dev, g, name)
+    time_head(torch, cs, dev, g, emit)
+
+
+def time_pairs(torch, cs, dev, g, name: str) -> None:
+    """bundle_sim then profile_decode at 64 and 1,559 rows of D = 10,000
+    queries against n = 10 unit bundles and 26 profiles: each alone and the
+    pair, as spans in a CUDA graph; the pair chained by programmatic
+    dependent launch where the checkout's wrapper takes ``pdl``, and
+    without."""
+    import inspect
+    from repro_torch.hdc.conventional import l2_normalize
+    from repro_torch.kernels import common
+    from repro_torch.kernels.bundle_sim import bundle_similarity
+    from repro_torch.kernels.profile_decode import profile_decode_scores
+    chained = "pdl" in inspect.signature(profile_decode_scores).parameters
+    m = l2_normalize(torch.randn((10, 10000), generator=g, device=dev))
+    prof = torch.randn((26, 10), generator=g, device=dev) * 0.3
+    for rows in (cs.MAX_BATCH, 1559):
+        h = torch.randn((rows, 10000), generator=g, device=dev)
+        acts = bundle_similarity(h, m)
+        kw = {"pdl": True} if chained else {}
+        row = {"checkout": name, "kernel": "pair", "shape": [rows, 10000, 10,
+                                                             26],
+               "bundle_sim_span_ms": cs.graph_span_ms(
+                   torch, lambda: bundle_similarity(h, m)),
+               "profile_decode_span_ms": cs.graph_span_ms(
+                   torch, lambda: profile_decode_scores(acts, prof)),
+               "pair_span_ms": cs.graph_span_ms(
+                   torch, lambda: profile_decode_scores(
+                       bundle_similarity(h, m), prof, **kw)),
+               "chained": chained}
+        if chained:
+            with common.pdl(False):
+                row["pair_span_no_pdl_ms"] = cs.graph_span_ms(
+                    torch, lambda: profile_decode_scores(
+                        bundle_similarity(h, m), prof, pdl=True))
+        print(json.dumps(row), flush=True)
+
+
+def time_head(torch, cs, dev, g, emit) -> None:
+    """loghd_head at qwen3-1.7b's decode step (B = 4) and a 512-row
+    prefill, bf16 h and M against bf16 and float32 P."""
+    from repro_torch.kernels.loghd_head import (loghd_head_logits,
+                                                loghd_head_logits_ref)
+    d, n, v = 2048, 20, 151936
+    m = (torch.randn((n, d), generator=g, device=dev) / d ** 0.5).to(
+        torch.bfloat16)
+    p16 = (torch.randn((v, n), generator=g, device=dev) * 0.05).to(
+        torch.bfloat16)
+    for b in (4, 512):
+        h = torch.randn((b, d), generator=g, device=dev).to(torch.bfloat16)
+        for p in (p16, p16.float()):
+            def library(h=h, p=p):
+                a = h.float() @ m.float().T
+                pf = p.float()
+                return torch.addmm(-(a * a).sum(1, keepdim=True)
+                                   - (pf * pf).sum(1), a, pf.T, alpha=2.0)
+            case = dict(
+                kernel=lambda h=h, p=p: loghd_head_logits(h, m, p),
+                plain=lambda h=h, p=p: loghd_head_logits_ref(h, m, p),
+                library=library,
+                bytes=(b * d * 2 + n * d * 2 + v * n * p.element_size()
+                       + b * v * 4),
+                ops=(2 * b * d * n + 2 * b * v * n + 2 * v * n + 2 * b * n
+                     + 3 * b * v), op_type="float32")
+            emit("loghd_head", (b, d, n, v), case,
+                 ("kernel", "plain", "library"),
+                 p_dtype=str(p.dtype).split(".")[1],
+                 span_ms=cs.graph_span_ms(torch, case["kernel"],
+                                          copies=20 if b < 64 else 4))
 
 
 def main() -> int:

@@ -39,7 +39,14 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
 
 It checks each kernel against its plain version (``bundle_sim`` also at the
 serving shapes, with rows bitwise equal at B = 1, 64 and 1,559 and two
-launches equal), each path's launch counts (``bundle_sim``'s split into
+launches equal; ``profile_decode`` at ``PD_SHAPES``, the extreme C = 2^16
+among them, with rows bitwise equal at B = 1, 64 and 1,559, two launches
+equal, and a launch chained after ``bundle_sim`` by programmatic dependent
+launch equal to an unchained one; ``loghd_head`` at B = 1, 4, 64 and 512
+of qwen3-1.7b's head and at n = 64 against a vocabulary no tile divides,
+every dtype pair, with the float32 argmax of plain, two launches equal and
+bf16 profiles equal to their float32 cast), each path's launch counts
+(``bundle_sim``'s split into
 serving-bucket and full-batch calls), that fits repeat bit for bit (the
 LogHD repeat with TF32 turned on globally, watching that every matmul of
 the fit runs in full float32), that kernel and plain predict and training
@@ -51,14 +58,21 @@ are bitwise independent of the batch, that the LM's decode matches its
 forward within 2e-3, and that ``loghd_head`` launches exactly once per
 decode step under the loghd head, never under the dense one, with the
 same tokens on a repeat; then it times every kernel, its plain version
-and a library call with CUDA events.
+and a library call with CUDA events and the profiler, and the chained
+launches by their span in a CUDA graph (``graph_span_ms``): ``bundle_sim``
+then ``profile_decode`` at 64 and 1,559 rows with the chain on and off,
+``loghd_head``'s two stages with it on and off, and a one-element ``add_``
+as this card's floor for a launch.
 
 Output: the serving rates and latencies, the LM's tokens/s and the wall,
 device time and idle share of one decode step, a JSON line with one entry per
 kernel (``bundle_sim`` at B = 1, 64, 1,559 against n = 10 and 26 bundles,
-``hdc_encode`` at B = 1, 64 and 1,559 and ``bundle_update`` at each
-family's minibatch under ``shapes``; ``bundle_sim``'s launches by batch
-under ``launches_by_batch``), the number of rows whose kernel label
+``hdc_encode`` at B = 1, 64 and 1,559, ``bundle_update`` at each
+family's minibatch, ``profile_decode`` at ``PD_SHAPES`` and ``loghd_head``
+at B = 4 and 512 with bf16 and float32 profiles under ``shapes``;
+``profile_decode``'s chained pair and the launch floor under ``chains``;
+``bundle_sim``'s launches by batch under ``launches_by_batch``), the number
+of rows whose kernel label
 differs from the plain route's beside each agreement share, the card's
 name and power limit as ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check
@@ -99,11 +113,20 @@ KERNELS = {
     "loghd_head": ("src/repro_torch/kernels/csrc/loghd_head.cu",
                    "src/repro/kernels/loghd_head/loghd_head.py:78"),
 }
-# the LM phase: qwen3-1.7b at full width; loghd_head at the serving step
-# (B, D, n, V) and at a 512-row prefill, at the JAX package's loghd_head
-# tolerances (tests/test_kernels.py:128-129)
+# profile_decode's checked and timed shapes (B, n, C): a lone request, a
+# serving bucket and the predict batch against LogHD's n = 10 bundles and
+# isolet's 26 classes, hybrid's n = 20, and the extreme-classification
+# C = 2^16 of examples/extreme_classification.py
+PD_SHAPES = [(1, 10, 26), (64, 10, 26), (1559, 10, 26), (1559, 20, 26),
+             (64, 16, 65536)]
+# the LM phase: qwen3-1.7b at full width; loghd_head at one row, the serving
+# step (B = 4), a 64-row batch and a 512-row prefill (B, D, n, V), and at
+# n = 64 bundles against a vocabulary that no tile divides, at the JAX
+# package's loghd_head tolerances (tests/test_kernels.py:128-129)
 LM_ARCH = "qwen3-1.7b"
-LH_SHAPES = [(4, 2048, 20, 151936), (512, 2048, 20, 151936)]
+LH_SHAPES = [(1, 2048, 20, 151936), (4, 2048, 20, 151936),
+             (64, 2048, 20, 151936), (512, 2048, 20, 151936)]
+LH_RAGGED = (5, 2048, 64, 100003)
 LH_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
           "bfloat16": dict(rtol=5e-2, atol=5e-1)}
 # the serving phase's checkpoints (under the gitignored build directory)
@@ -210,6 +233,43 @@ def device_ms(torch, fn, calls: int = 40, tries: int = 6):
     return None
 
 
+def graph_span_ms(torch, fn, copies: int = 20, replays: int = 10,
+                  reps: int = 5) -> float:
+    """Device span per call of fn: CUDA events around `replays` replays of
+    a CUDA graph captured from `copies` back-to-back calls of fn, median of
+    `reps`, after warm-up.  The graph takes the host's launch cost out, and
+    a call of two kernels chained by programmatic dependent launch counts
+    once, from the first kernel's start to the second's end (the
+    profiler's durations would count the second kernel's wait as well).
+    The graph is for timing only; the port launches eagerly."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(copies):
+            fn()
+    warm(torch, graph.replay)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / (replays * copies))
+    del graph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
 def profile_calls(torch, fn, calls: int = 10):
     """(device ms per call, device kernels and copies per call, the device
     events as (ms per call, count per call, name), largest first) of
@@ -284,7 +344,9 @@ def phase_kernels(torch, dev) -> dict:
             if (b, d, n) == (1559, 10000, 10) and dtype == torch.float32:
                 errs["bundle_sim"] = err
     check_bundle_sim_rows(torch, dev, g)
-    for (b, n, c) in [(1559, 10, 26), (37, 7, 45), (100, 40, 70)]:
+    # PD_SHAPES (the predict and serving shapes of LogHD and hybrid, and the
+    # extreme-classification C = 2^16), then ragged shapes and n > 32
+    for (b, n, c) in PD_SHAPES + [(37, 7, 45), (100, 40, 70)]:
         for dtype in (torch.float32, torch.bfloat16):
             a = torch.randn((b, n), generator=g, device=dev).to(dtype)
             p = torch.randn((c, n), generator=g, device=dev).to(dtype)
@@ -294,9 +356,12 @@ def phase_kernels(torch, dev) -> dict:
             tol = TOL[str(dtype).split(".")[1]]
             err = max_err(got, want)
             log(f"profile_decode ({b}, {n}, {c}) {dtype}: max_abs_err {err:.3e}")
+            check(got.shape == (b, c) and got.dtype == torch.float32,
+                  "profile_decode output shape / dtype")
             torch.testing.assert_close(got, want, rtol=tol, atol=tol)
             if (b, n, c) == (1559, 10, 26) and dtype == torch.float32:
                 errs["profile_decode"] = err
+    check_profile_decode_rows(torch, dev, g)
     worst = 0.0
     for shape in [(10, 10000), (26, 10)]:
         for bits in (1, 4, 8):
@@ -383,6 +448,56 @@ def check_bundle_sim_rows(torch, dev, g) -> None:
             f"clusters of {cluster} blocks x {chunks} bundle chunks of {kc}, "
             f"{tiles} row tiles, chunk {chunk} columns, {stages} stages, "
             f"{smem} bytes of shared memory a block")
+
+
+def check_profile_decode_rows(torch, dev, g) -> None:
+    """profile_decode rows have the same bits at B = 1, 64 and 1,559 (a
+    row's sums run in an order fixed by n), two launches give equal bits,
+    and a launch chained after bundle_sim (programmatic dependent launch)
+    gives the bits of an unchained one: LogHD (n = 10) and hybrid (n = 20)
+    profiles of isolet's 26 classes, float32 and bfloat16."""
+    from repro_torch.hdc.conventional import l2_normalize
+    from repro_torch.kernels import common
+    from repro_torch.kernels.bundle_sim import bundle_similarity
+    from repro_torch.kernels.profile_decode import profile_decode_scores
+    for n in (10, 20):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randn((1559, n), generator=g, device=dev).to(dtype)
+            p = torch.randn((26, n), generator=g, device=dev).to(dtype)
+            full = profile_decode_scores(a, p)
+            again = profile_decode_scores(a, p)
+            b64 = profile_decode_scores(a[:64].contiguous(), p)
+            b1 = torch.cat([profile_decode_scores(a[i:i + 1].contiguous(), p)
+                            for i in range(64)])
+            torch.cuda.synchronize()
+            check(torch.equal(full, again), f"profile_decode (1559, {n}, 26) "
+                  f"{dtype}: two launches differ")
+            check(torch.equal(full[:64], b64) and torch.equal(full[:64], b1),
+                  f"profile_decode ({n}, 26) {dtype}: a row's bits depend on "
+                  f"the batch (B = 1559, 64, 1)")
+        h = torch.randn((1559, 10000), generator=g, device=dev)
+        m = l2_normalize(torch.randn((n, 10000), generator=g, device=dev))
+        p = torch.randn((26, n), generator=g, device=dev)
+        for on in (True, False):
+            with common.pdl(on):
+                chained = profile_decode_scores(bundle_similarity(h, m), p,
+                                                pdl=True)
+            acts = bundle_similarity(h, m)
+            torch.cuda.synchronize()
+            check(torch.equal(chained, profile_decode_scores(acts, p)),
+                  f"profile_decode after bundle_sim (n = {n}, PDL {on}) "
+                  f"differs from an unchained launch")
+    log("profile_decode: rows 0-63 bitwise equal at B = 1, 64, 1559, two "
+        "launches equal, chained after bundle_sim (PDL on and off) equal to "
+        "unchained, n = 10 and 20, float32 and bfloat16")
+    from repro_torch.kernels.profile_decode import ops as pd_ops
+    for (b, n, c) in PD_SHAPES:
+        ks, chunks, wc, t, rb, vbk, smem = pd_ops._launch_args(
+            torch.cuda.current_device(), b, n, c, False)
+        log(f"profile_decode launch at ({b}, {n}, {c}) float32: grid "
+            f"({rb}, {vbk}), {wc} warp columns x {8 // wc} warp rows, {t} "
+            f"row tiles a warp, {ks} k-steps x {chunks} chunks, {smem} bytes "
+            f"of shared memory a block")
 
 
 def enc_inputs(torch, dev, g, b: int, f: int, d: int):
@@ -925,12 +1040,14 @@ def lm_config(dtype: str = None):
     return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
 
 
-def phase_lm_kernel(torch, dev, shapes=LH_SHAPES) -> float:
-    """loghd_head against its plain version at the decode and prefill
-    shapes: h and M in float32 and bfloat16, P in float32 and bfloat16,
-    at the JAX package's tolerances; a bf16 P read as stored gives the
-    bits of its float32 cast; the rows of the smaller batch are bitwise
-    the first rows of the larger one.  Returns the max abs error at the
+def phase_lm_kernel(torch, dev, shapes=LH_SHAPES, ragged=LH_RAGGED) -> float:
+    """loghd_head against its plain version at one row, the decode step, a
+    64-row batch and a 512-row prefill: h and M in float32 and bfloat16, P
+    in float32 and bfloat16, at the JAX package's tolerances, with the same
+    float32 argmax; a bf16 P read as stored gives the bits of its float32
+    cast; two launches give equal bits; the rows of each batch are bitwise
+    the first rows of the largest one; then n = 64 bundles against a
+    vocabulary that no tile divides.  Returns the max abs error at the
     decode shape in bfloat16 (the serving path's dtypes)."""
     from repro_torch.kernels.loghd_head import (loghd_head_logits,
                                                 loghd_head_logits_ref)
@@ -944,43 +1061,68 @@ def phase_lm_kernel(torch, dev, shapes=LH_SHAPES) -> float:
     m32 = torch.randn((n, d), generator=g, device=dev) / d ** 0.5
     p32 = torch.randn((v, n), generator=g, device=dev) * 0.05
     err = None
+
+    def one(h, m, p, tag):
+        got = loghd_head_logits(h, m, p)
+        with full_f32():
+            want = loghd_head_logits_ref(h, m, p)
+        again = loghd_head_logits(h, m, p)
+        torch.cuda.synchronize()
+        name = str(h.dtype).split(".")[1]
+        e = max_err(got, want)
+        log(f"loghd_head     {tag} h/M {name}, P "
+            f"{str(p.dtype).split('.')[1]}: max_abs_err {e:.3e}")
+        check(got.shape == (h.shape[0], p.shape[0])
+              and got.dtype == torch.float32,
+              "loghd_head output shape / dtype")
+        check(bool(torch.isfinite(got).all()), "loghd_head not finite")
+        torch.testing.assert_close(got, want, **LH_TOL[name])
+        if h.dtype == torch.float32:
+            check(torch.equal(got.argmax(-1), want.argmax(-1)),
+                  f"loghd_head {tag} argmax differs from plain (f32)")
+        check(torch.equal(got, again), f"loghd_head {tag}: two launches "
+              f"differ")
+        if p.dtype == torch.bfloat16:
+            check(torch.equal(got, loghd_head_logits(h, m, p.float())),
+                  f"loghd_head {tag}: bf16 P as stored differs from its "
+                  f"f32 cast")
+        return got, e
+
     for hm in (torch.float32, torch.bfloat16):
         m = m32.to(hm)
-        first = {}
-        for (b, _, _, _) in shapes:
-            h = h_all[:b].to(hm).contiguous()
-            for pd in (torch.float32, torch.bfloat16):
-                p = p32.to(pd)
-                got = loghd_head_logits(h, m, p)
-                with full_f32():
-                    want = loghd_head_logits_ref(h, m, p)
-                torch.cuda.synchronize()
-                name = str(hm).split(".")[1]
-                e = max_err(got, want)
-                log(f"loghd_head     ({b}, {d}, {n}, {v}) h/M {name}, P "
-                    f"{str(pd).split('.')[1]}: max_abs_err {e:.3e}")
-                check(got.shape == (b, v) and got.dtype == torch.float32,
-                      "loghd_head output shape / dtype")
-                check(bool(torch.isfinite(got).all()), "loghd_head not finite")
-                torch.testing.assert_close(got, want, **LH_TOL[name])
-                if hm == torch.float32:
-                    check(torch.equal(got.argmax(-1), want.argmax(-1)),
-                          "loghd_head argmax differs from plain (f32)")
-                if pd == torch.bfloat16:
-                    check(torch.equal(got, loghd_head_logits(h, m, p.float())),
-                          "loghd_head: bf16 P as stored differs from its "
-                          "f32 cast")
-                first.setdefault(pd, []).append(got)
-                if (b, hm, pd) == (shapes[0][0], torch.bfloat16,
-                                   torch.bfloat16):
+        for pd in (torch.float32, torch.bfloat16):
+            p = p32.to(pd)
+            outs = []
+            for (b, _, _, _) in shapes:
+                got, e = one(h_all[:b].to(hm).contiguous(), m, p,
+                             f"({b}, {d}, {n}, {v})")
+                outs.append(got)
+                if (b, hm, pd) == (4, torch.bfloat16, torch.bfloat16):
                     err = e
-        for pd, outs in first.items():
-            small = outs[0]
-            check(all(torch.equal(small, o[:small.shape[0]])
-                      for o in outs[1:]),
+            big = outs[-1]
+            check(all(torch.equal(o, big[:o.shape[0]]) for o in outs[:-1]),
                   f"loghd_head rows depend on B (h/M {hm}, P {pd})")
-    log(f"loghd_head: rows 0-{shapes[0][0] - 1} bitwise equal at B = "
+            del outs, big
+    log(f"loghd_head: rows bitwise equal at B = "
         + ", ".join(str(s[0]) for s in shapes) + " for every dtype pair")
+    b, d, n, v = ragged
+    h = torch.randn((b, d), generator=g, device=dev)
+    m = torch.randn((n, d), generator=g, device=dev) / d ** 0.5
+    p = torch.randn((v, n), generator=g, device=dev) * 0.05
+    for hm in (torch.float32, torch.bfloat16):
+        for pd in (torch.float32, torch.bfloat16):
+            one(h.to(hm), m.to(hm), p.to(pd), f"({b}, {d}, {n}, {v})")
+    from repro_torch.kernels.loghd_head import ops as lh_ops
+    for (b, d, n, v) in shapes + [ragged]:
+        for p_bf16 in (True, False):
+            ks, chunks, wc, t, rb, vbk, smem = lh_ops._launch_args(
+                torch.cuda.current_device(), b, d, n, v, p_bf16)
+            act = lh_ops.loghd_head_geometry(b, d, n, v, p_bf16).act_grid
+            log(f"loghd_head launch at ({b}, {d}, {n}, {v}), P "
+                f"{'bf16' if p_bf16 else 'f32'}: A stage grid {act}; score "
+                f"grid ({rb}, {vbk}), {wc} warp columns, {t} row tiles a "
+                f"warp, {ks} k-steps x {chunks} chunks, {smem} bytes of "
+                f"shared memory a block")
     return err
 
 
@@ -1185,45 +1327,66 @@ def phase_fit_profile(torch, mm: dict) -> dict:
 
 def time_lm_head(torch, lm: dict, rates: dict) -> dict:
     """loghd_head, its plain version and the library form on the served
-    LM's bf16 bundles and profiles and bf16 hidden states, at the decode
-    step (B = 4, the row of the kernels line) and at a 512-row prefill."""
+    LM's bf16 bundles and bf16 hidden states, with its bf16 profiles and
+    their float32 cast, at the decode step (B = 4; with bf16 profiles, the
+    row of the kernels line) and at a 512-row prefill: CUDA-event time per
+    eager call, profiler device time (the two kernels' durations summed,
+    the score stage's wait for A included), and the span of a call in a
+    CUDA graph with the score stage chained by PDL and without."""
+    from repro_torch.kernels import common
     from repro_torch.kernels.loghd_head import (loghd_head_logits,
                                                 loghd_head_logits_ref)
     head = lm["loghd"]["model"].head
     m = head.bundles.detach().contiguous()
-    p = head.profiles.detach().contiguous()
+    p16 = head.profiles.detach().contiguous()
     g = torch.Generator(device=m.device).manual_seed(5)
-    (n, d), v = m.shape, p.shape[0]
-    row = None
+    (n, d), v = m.shape, p16.shape[0]
+    rows, first = [], None
     for b in (4, 512):
         h = torch.randn((b, d), generator=g, device=m.device).to(m.dtype)
+        for p in (p16, p16.float()):
+            def library(h=h, p=p):
+                a = h.float() @ m.float().T
+                pf = p.float()
+                return torch.addmm(-(a * a).sum(1, keepdim=True)
+                                   - (pf * pf).sum(1), a, pf.T, alpha=2.0)
 
-        def library(h=h):
-            a = h.float() @ m.float().T
-            pf = p.float()
-            return torch.addmm(-(a * a).sum(1, keepdim=True)
-                               - (pf * pf).sum(1), a, pf.T, alpha=2.0)
-        roles = {"kernel": lambda h=h: loghd_head_logits(h, m, p),
-                 "plain": lambda h=h: loghd_head_logits_ref(h, m, p),
-                 "library": library}
-        t = {role: (time_ms(torch, fn), device_ms(torch, fn))
-             for role, fn in roles.items()}
-        n_bytes = (b * d * h.element_size() + n * d * m.element_size()
-                   + v * n * p.element_size() + b * v * 4)
-        n_ops = (2 * b * d * n + 2 * b * v * n + 2 * v * n + 2 * b * n
-                 + 3 * b * v)
-        b_ms, b_by = bound_ms(rates, n_bytes, n_ops, "float32")
-        log(f"time loghd_head B={b:<4} bound {b_ms:.5f} ms by {b_by} "
-            f"({n_bytes} B, {n_ops} flop); CUDA events | profiler device "
-            f"ms: " + "; ".join(f"{role} {t[role][0]} | {t[role][1]}"
-                                 for role in t))
-        if b == 4:
-            row = dict(ms=t["kernel"][0], plain_ms=t["plain"][0],
-                       library_ms=t["library"][0], device_ms=t["kernel"][1],
+            def kernel(h=h, p=p):
+                return loghd_head_logits(h, m, p)
+            roles = {"kernel": kernel,
+                     "plain": lambda h=h, p=p: loghd_head_logits_ref(h, m, p),
+                     "library": library}
+            t = {role: (time_ms(torch, fn), device_ms(torch, fn))
+                 for role, fn in roles.items()}
+            copies = 20 if b <= 64 else 4
+            span = graph_span_ms(torch, kernel, copies=copies)
+            with common.pdl(False):
+                span_off = graph_span_ms(torch, kernel, copies=copies)
+            lib_span = graph_span_ms(torch, library, copies=copies)
+            n_bytes = (b * d * h.element_size() + n * d * m.element_size()
+                       + v * n * p.element_size() + b * v * 4)
+            n_ops = (2 * b * d * n + 2 * b * v * n + 2 * v * n + 2 * b * n
+                     + 3 * b * v)
+            b_ms, b_by = bound_ms(rates, n_bytes, n_ops, "float32")
+            pname = str(p.dtype).split(".")[1]
+            row = dict(shape=[b, d, n, v], p_dtype=pname, ms=t["kernel"][0],
+                       plain_ms=t["plain"][0], library_ms=t["library"][0],
+                       device_ms=t["kernel"][1],
                        plain_device_ms=t["plain"][1],
-                       library_device_ms=t["library"][1], bound_ms=b_ms,
-                       bound_by=b_by)
-    return row
+                       library_device_ms=t["library"][1], span_ms=span,
+                       span_no_pdl_ms=span_off, library_span_ms=lib_span,
+                       bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            log(f"time loghd_head B={b:<4} P {pname}: bound {b_ms:.5f} ms by "
+                f"{b_by} ({n_bytes} B, {n_ops} flop); span in a graph "
+                f"{span:.5f} ms (PDL off {span_off:.5f}, library "
+                f"{lib_span:.5f}); CUDA events | profiler device ms: "
+                + "; ".join(f"{role} {t[role][0]} | {t[role][1]}"
+                            for role in t))
+            if b == 4 and p is p16:
+                first = dict(row)
+    first["shapes"] = rows
+    return first
 
 
 def enc_case(torch, x, proj, bias, center) -> dict:
@@ -1241,6 +1404,74 @@ def enc_case(torch, x, proj, bias, center) -> dict:
         gemm=lambda: x @ proj,
         bytes=(rows * f + f * d + rows * d + 2 * d) * 4,
         ops=2 * rows * f * d, op_type="tf32x3")
+
+
+def pd_case(torch, acts, prof) -> dict:
+    """profile_decode's roles on one input: the kernel, its plain version,
+    the library form (one addmm with the two norms as its bias); its bytes
+    and flops."""
+    from repro_torch.kernels.profile_decode import (profile_decode_scores,
+                                                    profile_decode_scores_ref)
+    (b, n), c = acts.shape, prof.shape[0]
+    return dict(
+        kernel=lambda: profile_decode_scores(acts, prof),
+        plain=lambda: profile_decode_scores_ref(acts, prof),
+        library=lambda: torch.addmm(
+            -(acts * acts).sum(1, keepdim=True) - (prof * prof).sum(1),
+            acts, prof.T, alpha=2.0),
+        bytes=(b * n + c * n) * acts.element_size() + b * c * 4,
+        ops=2 * b * c * n + 2 * (b + c) * n + 2 * b * c, op_type="float32")
+
+
+def time_chains(torch, main: dict) -> dict:
+    """The predict path's chain on slice 1's LogHD model (n = 10 bundles,
+    isolet's 26 classes): bundle_sim, then profile_decode as its
+    programmatic dependent, at a 64-row serving bucket and the 1,559-row
+    batch of test encodings.  Each kernel alone and the pair, as spans in a
+    CUDA graph (``graph_span_ms``) and as profiler device time; the pair
+    with PDL off.  And this card's floor for a launch: a one-element
+    ``add_``, timed by the same two methods."""
+    from repro_torch.hdc.conventional import l2_normalize
+    from repro_torch.kernels import common
+    from repro_torch.kernels.bundle_sim import bundle_similarity
+    from repro_torch.kernels.profile_decode import profile_decode_scores
+    model = main["model"]
+    m = l2_normalize(model.bundles).contiguous()
+    prof = model.profiles.float().contiguous()
+    x = torch.zeros(1, device=m.device)
+    floor = dict(device_ms=device_ms(torch, lambda: x.add_(1.0)),
+                 span_ms=graph_span_ms(torch, lambda: x.add_(1.0)))
+    log(f"launch floor (one-element add_): device {floor['device_ms']} ms, "
+        f"span in a graph {floor['span_ms']:.5f} ms")
+    pairs = []
+    for rows in (MAX_BATCH, 1559):
+        h = main["h_te"][:rows].contiguous()
+        acts = bundle_similarity(h, m)
+
+        def sim(h=h):
+            return bundle_similarity(h, m)
+
+        def dec(acts=acts):
+            return profile_decode_scores(acts, prof)
+
+        def pair(h=h):
+            return profile_decode_scores(bundle_similarity(h, m), prof,
+                                         pdl=True)
+        row = dict(shape=[rows, m.shape[1], m.shape[0], prof.shape[0]],
+                   bundle_sim_span_ms=graph_span_ms(torch, sim),
+                   profile_decode_span_ms=graph_span_ms(torch, dec),
+                   pair_span_ms=graph_span_ms(torch, pair))
+        with common.pdl(False):
+            row["pair_span_no_pdl_ms"] = graph_span_ms(torch, pair)
+        row["bundle_sim_device_ms"] = device_ms(torch, sim)
+        row["profile_decode_device_ms"] = device_ms(torch, dec)
+        row["sum_alone_minus_pair_ms"] = (row["bundle_sim_span_ms"]
+                                          + row["profile_decode_span_ms"]
+                                          - row["pair_span_ms"])
+        log(f"time chain bundle_sim -> profile_decode at {rows} rows: "
+            + ", ".join(f"{k} {v}" for k, v in row.items()))
+        pairs.append(row)
+    return {"launch_floor": floor, "pairs": pairs}
 
 
 def bs_inputs(torch, dev, g, b: int, d: int, n: int):
@@ -1312,8 +1543,11 @@ def shape_row(torch, rates: dict, shape, cs: dict, roles) -> dict:
 # the predict batch
 ENC_TIME_ROWS = (1, MAX_BATCH, 1559)
 # bundle_sim's timed shapes (B, D, n): the same batches against the LogHD
-# (n = 10) and the conventional (n = 26) bundles of isolet
-BS_TIME_SHAPES = [(b, 10000, n) for n in (10, 26) for b in ENC_TIME_ROWS]
+# (n = 10) and the conventional (n = 26) bundles of isolet, then the
+# predict batches of SparseHD (D' = 4,000, C = 26) and hybrid (D' = 5,200,
+# n = 20) at budget 0.4
+BS_TIME_SHAPES = ([(b, 10000, n) for n in (10, 26) for b in ENC_TIME_ROWS]
+                  + [(1559, 4000, 26), (1559, 5200, 20)])
 
 
 def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
@@ -1323,8 +1557,6 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     from repro_torch.kernels.bundle_sim import bundle_similarity
     from repro_torch.kernels.flip_corrupt import (flip_corrupt,
                                                   flip_corrupt_ref)
-    from repro_torch.kernels.profile_decode import (profile_decode_scores,
-                                                    profile_decode_scores_ref)
     model, h = main["model"], main["h_te"].contiguous()
     m = l2_normalize(model.bundles).contiguous()
     acts = bundle_similarity(h, m)
@@ -1345,15 +1577,7 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
 
     cases = {
         "bundle_sim": bs_case(torch, h, m),
-        "profile_decode": dict(
-            kernel=lambda: profile_decode_scores(acts, prof),
-            plain=lambda: profile_decode_scores_ref(acts, prof),
-            library=lambda: torch.addmm(
-                -(acts * acts).sum(1, keepdim=True) - (prof * prof).sum(1),
-                acts, prof.T, alpha=2.0),
-            bytes=(b * n + c * n) * 4 + b * c * 4,
-            ops=2 * b * c * n + 2 * (b + c) * n + 2 * b * c,
-            op_type="float32"),
+        "profile_decode": pd_case(torch, acts, prof),
         "flip_corrupt": dict(
             kernel=lambda: flip_corrupt(q.codes, q.scale, bits, 0.1, 7),
             plain=lambda: flip_corrupt_ref(q.codes, q.scale, 0.1, 7,
@@ -1417,6 +1641,18 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
         row["family"] = fam
         fam_rows.append(row)
     out["bundle_update"]["shapes"] = fam_rows
+    # profile_decode at each of PD_SHAPES, on random activations and
+    # profiles, with the span of a call in a graph beside its device time
+    pd_rows = []
+    for (b, n, c) in PD_SHAPES:
+        cs = pd_case(torch, torch.randn((b, n), generator=g, device=mu.device),
+                     torch.randn((c, n), generator=g, device=mu.device))
+        row = shape_row(torch, rates, (b, n, c), cs,
+                        ("kernel", "plain", "library"))
+        row["span_ms"] = graph_span_ms(torch, cs["kernel"])
+        pd_rows.append(row)
+    out["profile_decode"]["shapes"] = pd_rows
+    out["profile_decode"]["chains"] = time_chains(torch, main)
     out["loghd_head"] = time_lm_head(torch, lm, rates)
     return out
 
@@ -1501,7 +1737,8 @@ def main() -> int:
                 f"full (> {MAX_BATCH} rows)": {
                     p: c["full"] for p, c in bs_batches.items()}}}
                if name == "bundle_sim" else {}),
-            **({"shapes": t["shapes"]} if "shapes" in t else {})})
+            **({"shapes": t["shapes"]} if "shapes" in t else {}),
+            **({"chains": t["chains"]} if "chains" in t else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

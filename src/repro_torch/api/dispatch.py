@@ -46,10 +46,15 @@ def _activations(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return bundle_similarity(h.contiguous(), l2_normalize(m).contiguous())
 
 
-def _decode(acts: torch.Tensor, profiles: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(profile_decode_scores(acts,
-                                              profiles.float().contiguous()),
-                        dim=-1)
+def _decode(h: torch.Tensor, m: torch.Tensor,
+            profiles: torch.Tensor) -> torch.Tensor:
+    """bundle_sim, then profile_decode as its programmatic dependent: the
+    profiles are made float32 and contiguous before bundle_sim launches, so
+    the kernel just before profile_decode is bundle_sim, which does not
+    write them."""
+    p = profiles.float().contiguous()
+    acts = _activations(h, m)
+    return torch.argmax(profile_decode_scores(acts, p, pdl=True), dim=-1)
 
 
 def _predict_kernel(model: HDModel, h: torch.Tensor) -> torch.Tensor:
@@ -60,10 +65,10 @@ def _predict_kernel(model: HDModel, h: torch.Tensor) -> torch.Tensor:
         h_s = l2_normalize(h[:, model.keep])
         return torch.argmax(_activations(h_s, model.protos), dim=-1)
     if isinstance(model, LogHDModel):
-        return _decode(_activations(h, model.bundles), model.profiles)
+        return _decode(h, model.bundles, model.profiles)
     if isinstance(model, HybridModel):
         h_s = l2_normalize(h[:, model.keep])
-        return _decode(_activations(h_s, model.bundles), model.profiles)
+        return _decode(h_s, model.bundles, model.profiles)
     raise TypeError(f"no kernel route for {type(model).__name__}")
 
 

@@ -7,8 +7,9 @@ with
          -Xcompiler -fPIC
 
 into ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout,
-where the hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  ``build_all`` starts one ``nvcc``
+where the hash covers the source, the ``csrc/`` headers it includes (with
+``#include "..."``, followed through the headers) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  ``build_all`` starts one ``nvcc``
 per missing library, all at once, and waits for them; a failed build
 raises with the compiler's output.  Nothing here runs at import time.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,11 +47,30 @@ def _nvcc() -> str:
         f"from {CSRC} at first use")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str, csrc: Path = CSRC) -> list[Path]:
+    """The source of kernel `name` and the headers under `csrc` it includes
+    with ``#include "..."``, directly or through another header, in the
+    order first reached."""
+    todo, seen = [csrc / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [csrc / inc.decode() for inc in _INCLUDE.findall(
+            path.read_bytes()) if (csrc / inc.decode()).is_file()]
+    return seen
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    digest = hashlib.sha256()
+    for path in sources(name, csrc):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def kernel_names() -> list[str]:

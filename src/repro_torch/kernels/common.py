@@ -15,6 +15,7 @@ tiles) have no counterpart: the CUDA kernels mask their ragged edges.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 
 import torch
@@ -31,6 +32,29 @@ launch_rows: collections.Counter = collections.Counter()
 def reset_launches() -> None:
     launches.clear()
     launch_rows.clear()
+
+
+# Programmatic dependent launch (PDL, Hopper): loghd_head's score stage, and
+# profile_decode where its caller asks, start under the tail of the kernel
+# before them and wait for it (griddepcontrol.wait) before they read its
+# output.  On by default; off only to measure what it saves.
+_pdl = [True]
+
+
+def pdl_enabled() -> bool:
+    return _pdl[0]
+
+
+@contextlib.contextmanager
+def pdl(enabled: bool):
+    """Launch the chained kernels with (True) or without (False) the PDL
+    attribute inside the block; the results are the same bits."""
+    before = _pdl[0]
+    _pdl[0] = bool(enabled)
+    try:
+        yield
+    finally:
+        _pdl[0] = before
 
 
 def resolve_device(device=None) -> torch.device:

@@ -341,6 +341,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         cluster_arrive_relaxed();
       }
     }
+    // every load is issued: a programmatic dependent (profile_decode) may
+    // start its prologue; it waits for this grid before it reads the output
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
     cluster_wait();
     return;
   }

@@ -7,55 +7,45 @@
 //                             = -||A_b - P_v||^2
 // for hidden states h (B, D) and bundles M (n, D), each float32 or bfloat16
 // (widened on load), and vocab profiles P (V, n) in float32 or bfloat16.
-// Widening a bf16 profile is exact, so reading the stored bf16 P gives the
-// same logits as casting it to float32 first, as the JAX dispatch does.
-// Everything is summed in float32 with fmaf: no tensor cores, no TF32, no
-// fast math.  Output (B, V) float32.
+// Output (B, V) float32.
 //
 // What bounds it on the H100: bytes.  At the serving step (B, D, n, V) =
 // (4, 2048, 20, 151936) in bf16 it must read 6.1 MB of P and write 2.4 MB of
-// logits, about 2.6 us at 3.35 TB/s, against 2BVn = 24 MFLOP, 0.4 us at the
-// float32 rate.  At a 512-row prefill the 311 MB of logits dominate (93 us)
-// and the 3.1 GFLOP come to half of that.
+// logits, about 2.6 us at 3.35 TB/s; at a 512-row forward the 311 MB of
+// logits (93 us), against 1.6 G multiply-adds.
 //
-// Design: two launches.  The TPU kernel computes A on its first V tile into
-// VMEM scratch and reuses it on every later tile, which relies on the TPU
-// running its grid in order and keeping scratch between steps; CUDA blocks
-// have neither, and recomputing A in every V block would cost B n D FMAs
-// per block (12.5 G at a 512-row prefill).  So the first kernel computes A
-// alone, one block of 256 threads per (row b, bundle j): each thread loads
-// its D / 256 elements of h_b and M_j in batches of 8 (all in flight at
-// once), sums them in d order with fmaf, and the block reduces the threads
-// with a fixed shuffle tree and its 8 warps in order, into a (B, n)
-// float32 scratch.  The second kernel gives each thread one v and each
-// block 256 consecutive v and up to 64 rows: a thread loads P_v's n values
-// into registers (all loads in flight at once; the warp's 32 rows are one
-// contiguous span, which L1 serves) and sums ||P_v||^2; the block walks
-// its rows in tiles of 32 staged in shared memory (rows padded with zeros
-// to whole float4s, so a thread reads four values of A_b per load), sums
-// ||A_b||^2 in a fixed order, and each thread writes out[b, v],
-// neighbouring threads on neighbouring v (coalesced).  An earlier version
-// that staged the P tile through shared memory took 15.4 us of device time
-// at the serving step, where this one takes 6.5 us (chip_smoke.py, NVIDIA
-// H100 80GB HBM3, 700 W).
-// Every sum has one order that depends on neither B nor the grid, so a
-// row's logits are bitwise the same at any batch size.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design: two launches chained by programmatic dependent launch (PDL).
+//  - The A stage: a block of 256 threads computes A[b, j] = <h_b, M_j> for
+//    one (row, bundle) below 64 rows (the most blocks for a decode step) and
+//    for 4 rows x 4 bundles from 64 rows (h and M read a quarter as often:
+//    at 512 rows the one-pair blocks took 16.5 us on an H100); either way
+//    each thread sums its D / 256 elements (batches of 8 loads in flight) in
+//    d order with fmaf, and the block reduces the threads by a fixed shuffle
+//    tree and its 8 warps in order, into a (B, n) float32 scratch.  Its
+//    blocks signal launch_dependents as they start.
+//  - The score stage (score_stage.cuh, shared with profile_decode) is
+//    launched as a programmatic dependent: its blocks start while the A stage
+//    runs and issue the 16-byte copies of their span of P, then wait
+//    (griddepcontrol.wait) for A, copy their rows of A, and compute 2 A P^T
+//    on the tensor cores (A split into a TF32 high part and its remainder: two products
+//    against a bf16 P, three against a float32 P) before the 16-byte stores of
+//    the logits.  So the decode step pays for the A stage and the score
+//    stage's tail, not for two launches and a P read in series.
+//  - The TPU kernel kept A in VMEM scratch across its sequential grid; CUDA
+//    blocks have no such order, and recomputing A per block of V would cost
+//    B n D multiply-adds per block.
+// Every sum has one order that depends on neither B nor the grid, so a row's
+// logits are bitwise the same at any batch size; a bf16 P read as stored
+// gives the bits of its float32 widening (its remainder products are exact
+// zeros).
+#include "score_stage.cuh"
 
 namespace {
 
 constexpr int kMaxN = 64;         // bundles supported (n = 20 at V = 151936)
 constexpr int kActThreads = 256;  // threads per (b, j) dot product
 constexpr int kActBatch = 8;      // loads of h and M in flight per thread
-constexpr int kThreads = 256;     // v per block of the second kernel
-constexpr int kRowTile = 32;      // rows of A staged in shared memory at once
-constexpr int kRowsPerBlock = 64; // rows of the output per block
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int kActRowsMin = 64;   // rows from which a block takes 4 x 4
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -63,158 +53,154 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// A[b, j] = <h_b, M_j>: grid (B, n), one block per dot product.
-template <typename TH, typename TM>
+// A[b, j] = <h_b, M_j> for kR rows x kJ bundles a block: grid
+// (ceil(B / kR), ceil(n / kJ)).  Every (b, j) is summed in the one order of
+// a single dot product: thread t takes d = t + 256 i (i in order, fmaf),
+// then the xor shuffle tree, then the 8 warps in order; so kR and kJ do not
+// change a bit, and large B reads h and M kR and kJ times less often.
+template <typename TH, typename TM, int kR, int kJ>
 __global__ void __launch_bounds__(kActThreads)
     acts_kernel(const TH* __restrict__ h, const TM* __restrict__ m,
-                float* __restrict__ a, int D, int n) {
-  __shared__ float red[kActThreads / 32];
+                float* __restrict__ a, int B, int D, int n) {
+  // the score stage may start now: its prologue reads only P
+  score::launch_dependents();
+  __shared__ float red[kActThreads / 32][kR * kJ];
   const int t = threadIdx.x;
-  const size_t b = blockIdx.x;
-  const int j = blockIdx.y;
-  const TH* hr = h + b * D;
-  const TM* mr = m + (size_t)j * D;
-  float acc = 0.f;
+  const int b0 = blockIdx.x * kR, j0 = blockIdx.y * kJ;
+  float acc[kR][kJ];
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+#pragma unroll
+    for (int q = 0; q < kJ; ++q) acc[r][q] = 0.f;
   for (int d0 = t; d0 < D; d0 += kActThreads * kActBatch) {
-    float hv[kActBatch], mv[kActBatch];
+    float hv[kR][kActBatch], mv[kJ][kActBatch];
 #pragma unroll
     for (int k = 0; k < kActBatch; ++k) {
       const int d = d0 + k * kActThreads;
-      hv[k] = d < D ? to_f32(hr[d]) : 0.f;
-      mv[k] = d < D ? to_f32(mr[d]) : 0.f;
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        hv[r][k] = (d < D && b0 + r < B)
+                       ? score::to_f32(h[(size_t)(b0 + r) * D + d])
+                       : 0.f;
+#pragma unroll
+      for (int q = 0; q < kJ; ++q)
+        mv[q][k] = (d < D && j0 + q < n)
+                       ? score::to_f32(m[(size_t)(j0 + q) * D + d])
+                       : 0.f;
     }
 #pragma unroll
-    for (int k = 0; k < kActBatch; ++k) acc = fmaf(hv[k], mv[k], acc);
+    for (int k = 0; k < kActBatch; ++k)
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+#pragma unroll
+        for (int q = 0; q < kJ; ++q)
+          acc[r][q] = fmaf(hv[r][k], mv[q][k], acc[r][q]);
   }
-  acc = warp_sum(acc);
-  if ((t & 31) == 0) red[t >> 5] = acc;
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+#pragma unroll
+    for (int q = 0; q < kJ; ++q) {
+      const float s = warp_sum(acc[r][q]);
+      if ((t & 31) == 0) red[t >> 5][r * kJ + q] = s;
+    }
   __syncthreads();
-  if (t == 0) {
+  if (t < kR * kJ) {
+    const int r = t / kJ, q = t % kJ;
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kActThreads / 32; ++w) s += red[w];
-    a[b * n + j] = s;
+    for (int w = 0; w < kActThreads / 32; ++w) s += red[w][t];
+    if (b0 + r < B && j0 + q < n) a[(size_t)(b0 + r) * n + j0 + q] = s;
   }
 }
 
-// A row of A in shared memory, padded with zeros to whole float4s.
-__host__ __device__ inline int a_stride(int n) { return (n + 3) & ~3; }
-
-// kN: register slots for one profile, 32 or 64, the smaller that holds n.
-// At kN = 32 the registers are capped at 85 a thread, so that three blocks
-// share an SM.
-template <typename TP, int kN>
-__global__ void __launch_bounds__(kThreads, kN <= 32 ? 3 : 1)
-    decode_kernel(const float* __restrict__ a, const TP* __restrict__ p,
-                  float* __restrict__ out, int B, int V, int n) {
-  extern __shared__ float4 smem4[];
-  const int n4 = a_stride(n);
-  float* as = reinterpret_cast<float*>(smem4);  // kRowTile x n4
-  float* asq = as + kRowTile * n4;              // kRowTile
-
-  const int t = threadIdx.x;
-  const int v = blockIdx.x * kThreads + t;
-  const bool live = v < V;
-  const TP* pv = p + (size_t)min(v, V - 1) * n;
-  float pr[kN];
-  float p_sq = 0.f;
-#pragma unroll
-  for (int j = 0; j < kN; ++j) pr[j] = (j < n && live) ? to_f32(pv[j]) : 0.f;
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-    if (j < n) p_sq = fmaf(pr[j], pr[j], p_sq);
-
-  const int b_begin = blockIdx.y * kRowsPerBlock;
-  const int b_end = min(B, b_begin + kRowsPerBlock);
-  float* col = out + v;
-  for (int b0 = b_begin; b0 < b_end; b0 += kRowTile) {
-    const int nb = min(kRowTile, b_end - b0);
-    __syncthreads();  // every thread is done with the previous row tile
-    for (int i = t; i < nb * n4; i += kThreads) {
-      const int r = i / n4, c = i - r * n4;
-      as[i] = c < n ? a[(size_t)(b0 + r) * n + c] : 0.f;
-    }
-    __syncthreads();
-    if (t < nb) {
-      float s = 0.f;
-      for (int j = 0; j < n; ++j) s = fmaf(as[t * n4 + j], as[t * n4 + j], s);
-      asq[t] = s;
-    }
-    __syncthreads();
-    if (live) {
-      for (int r = 0; r < nb; ++r) {
-        const float4* ar = reinterpret_cast<const float4*>(as + r * n4);
-        float dot = 0.f;
-#pragma unroll
-        for (int q = 0; q < kN / 4; ++q) {
-          if (4 * q < n) {  // the zero padding adds fmaf(0, 0, dot) = dot
-            const float4 x = ar[q];
-            dot = fmaf(x.x, pr[4 * q], dot);
-            dot = fmaf(x.y, pr[4 * q + 1], dot);
-            dot = fmaf(x.z, pr[4 * q + 2], dot);
-            dot = fmaf(x.w, pr[4 * q + 3], dot);
-          }
-        }
-        col[(size_t)(b0 + r) * V] = 2.f * dot - p_sq - asq[r];
-      }
-    }
-  }
-}
-
+// one row and one bundle a block (the most blocks) up to kActRowsMin rows;
+// beyond, 4 rows x 4 bundles a block
 template <typename TH, typename TM>
-void launch_acts(const void* h, const void* m, float* a, int B, int D, int n,
-                 cudaStream_t s) {
-  acts_kernel<TH, TM><<<dim3(B, n), kActThreads, 0, s>>>(
-      static_cast<const TH*>(h), static_cast<const TM*>(m), a, D, n);
+cudaError_t launch_acts(const void* h, const void* m, float* a, int B, int D,
+                        int n, cudaStream_t s) {
+  const TH* hp = static_cast<const TH*>(h);
+  const TM* mp = static_cast<const TM*>(m);
+  if (B < kActRowsMin)
+    acts_kernel<TH, TM, 1, 1><<<dim3(B, n), kActThreads, 0, s>>>(hp, mp, a,
+                                                                 B, D, n);
+  else
+    acts_kernel<TH, TM, 4, 4><<<dim3((B + 3) / 4, (n + 3) / 4), kActThreads,
+                                0, s>>>(hp, mp, a, B, D, n);
+  return cudaGetLastError();
 }
 
-template <typename TP, int kN>
-cudaError_t launch_decode(const float* a, const void* p, float* out, int B,
-                          int V, int n, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (kRowTile * a_stride(n) + kRowTile);
-  const dim3 grid((V + kThreads - 1) / kThreads,
-                  (B + kRowsPerBlock - 1) / kRowsPerBlock);
-  decode_kernel<TP, kN><<<grid, kThreads, smem, s>>>(
-      a, static_cast<const TP*>(p), out, B, V, n);
-  return cudaSuccess;
-}
-
-template <typename TP>
-cudaError_t launch_decode_n(const float* a, const void* p, float* out, int B,
-                            int V, int n, cudaStream_t s) {
-  return n <= 32 ? launch_decode<TP, 32>(a, p, out, B, V, n, s)
-                 : launch_decode<TP, 64>(a, p, out, B, V, n, s);
+template <int kS>
+cudaError_t launch_scores(const float* a, const void* p, float* out, int B,
+                          int V, int n, int p_bf16, int chunks, int wc, int t,
+                          int row_blocks, int v_blocks, int smem, int pdl,
+                          cudaStream_t s) {
+  return p_bf16
+             ? score::launch<float, __nv_bfloat16, kS, false>(
+                   a, static_cast<const __nv_bfloat16*>(p), out, B, V, n,
+                   chunks, wc, t, row_blocks, v_blocks, smem, pdl, 0, s)
+             : score::launch<float, float, kS, false>(
+                   a, static_cast<const float*>(p), out, B, V, n, chunks, wc,
+                   t, row_blocks, v_blocks, smem, pdl, 0, s);
 }
 
 }  // namespace
 
+// Blocks of the score stage (k-steps ks, P bfloat16 when p_bf16) with
+// `smem` bytes that the current device holds at once; a negative
+// cudaError_t on error, -1 for a ks that was not compiled.
+extern "C" int loghd_head_capacity(int ks, int p_bf16, int smem) {
+  switch (ks) {
+#define LH_CAP(K)                                                    \
+  case K:                                                            \
+    return p_bf16 ? score::capacity<float, __nv_bfloat16, K, false>(smem)   \
+                  : score::capacity<float, float, K, false>(smem);
+    SCORE_STEPS(LH_CAP)
+#undef LH_CAP
+    default:
+      return -1;
+  }
+}
+
 // h: (B, D), m: (n, D), p: (V, n), each float32 (flag 0) or bfloat16
 // (flag 1), row-major; a: (B, n) float32 scratch; out: (B, V) float32.
-// Requires B, D, n, V > 0, n <= 64 and ceil(B / 64) <= 65535.  Launches two
-// kernels on `stream` and returns the first cudaError_t (0 on success).
+// ks, chunks, wc, t, row_blocks, v_blocks and smem come from ops.py's
+// loghd_head_geometry and must describe a score stage this file can run
+// (score::valid), with 0 < n <= 64 and B <= 2^31 - 1 (else
+// cudaErrorInvalidValue, nothing launched).  pdl = 1 launches the score stage
+// as a programmatic dependent of the A stage.  Returns the first
+// cudaError_t (0 on success).
 extern "C" int loghd_head_launch(const void* h, const void* m, const void* p,
                                  void* a, void* out, int B, int D, int n,
                                  int V, int h_bf16, int m_bf16, int p_bf16,
-                                 void* stream) {
-  if (B <= 0 || D <= 0 || n <= 0 || n > kMaxN || V <= 0 ||
-      (B + kRowsPerBlock - 1) / kRowsPerBlock > 65535)
+                                 int ks, int chunks, int wc, int t,
+                                 int row_blocks, int v_blocks, int smem,
+                                 int pdl, void* stream) {
+  if (D <= 0 || n <= 0 || n > kMaxN ||
+      !score::valid(B, V, n, 4, p_bf16 ? 2 : 4, ks, chunks, wc, t,
+                    row_blocks, v_blocks, smem))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* af = static_cast<float*>(a);
+  cudaError_t e;
   if (h_bf16 && m_bf16)
-    launch_acts<__nv_bfloat16, __nv_bfloat16>(h, m, af, B, D, n, s);
+    e = launch_acts<__nv_bfloat16, __nv_bfloat16>(h, m, af, B, D, n, s);
   else if (h_bf16)
-    launch_acts<__nv_bfloat16, float>(h, m, af, B, D, n, s);
+    e = launch_acts<__nv_bfloat16, float>(h, m, af, B, D, n, s);
   else if (m_bf16)
-    launch_acts<float, __nv_bfloat16>(h, m, af, B, D, n, s);
+    e = launch_acts<float, __nv_bfloat16>(h, m, af, B, D, n, s);
   else
-    launch_acts<float, float>(h, m, af, B, D, n, s);
-  cudaError_t e = cudaGetLastError();
+    e = launch_acts<float, float>(h, m, af, B, D, n, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = p_bf16 ? launch_decode_n<__nv_bfloat16>(af, p, static_cast<float*>(out),
-                                              B, V, n, s)
-             : launch_decode_n<float>(af, p, static_cast<float*>(out), B, V,
-                                      n, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  float* o = static_cast<float*>(out);
+  switch (ks) {
+#define LH_LAUNCH(K)                                                      \
+  case K:                                                                 \
+    return static_cast<int>(launch_scores<K>(af, p, o, B, V, n, p_bf16,   \
+                                             chunks, wc, t, row_blocks, \
+                                             v_blocks, smem, pdl, s));
+    SCORE_STEPS(LH_LAUNCH)
+#undef LH_LAUNCH
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

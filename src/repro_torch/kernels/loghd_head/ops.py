@@ -4,39 +4,96 @@
 m (n, D), each float32 or bfloat16, and vocab profiles p (V, n) in float32
 or bfloat16, and returns the (B, V) float32 logits -||h m^T - p_v||^2 of
 the LogHD vocab head.  CPU tensors take the plain version in ``ref.py``;
-CUDA tensors launch the kernel (two launches, counted as one) on the
-current stream or raise.  Both routes check the same arguments.
+CUDA tensors launch the kernel (the A stage, then the score stage as its
+programmatic dependent; counted as one launch) on the current stream or
+raise.  Both routes check the same arguments.  ``loghd_head_geometry``
+computes the launch from (B, D, n, V); the C entry checks it again.
 
 Both routes widen every input to float32 before any arithmetic.  The
 kernel reads bf16 profiles as stored and widens them in registers, which is
 exact, so it gives the same logits as the JAX dispatch's cast of the
 profiles to float32 (``repro.api.dispatch.loghd_head_scores``) without
 materialising that cast; ``chip_smoke.py`` compares both forms on the card.
+The (B, n) activations A live in the same allocation as the logits, behind
+them: one ``torch.empty`` a call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, common
+from repro_torch.kernels import _build, common, score_stage
 from repro_torch.kernels.loghd_head.ref import loghd_head_logits_ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_N = 64                  # bundles the kernel holds (kMaxN in the source)
-_ROWS_PER_BLOCK = 64        # the kernel's grid-y rows (kRowsPerBlock)
+ACT_THREADS = 256           # threads of an A-stage block (kActThreads)
+# from ACT_ROWS_MIN rows (kActRowsMin) an A-stage block takes ACT_TILE rows
+# x ACT_TILE bundles, below it one row and one bundle
+ACT_ROWS_MIN, ACT_TILE = 64, 4
+
+
+@dataclass(frozen=True)
+class HeadGeometry:
+    """One call: the A stage's grid of `act_threads`-thread blocks, each
+    `act_tile` rows x `act_tile` bundles, writing `scratch` float32 values
+    of A; then the score stage over V profiles
+    (``score_stage.ScoreGeometry``)."""
+    act_grid: tuple
+    act_threads: int
+    act_tile: int
+    scratch: int
+    score: score_stage.ScoreGeometry
+
+
+@functools.lru_cache(maxsize=None)
+def loghd_head_geometry(b: int, d: int, n: int, v: int, p_bf16: bool = True,
+                        capacity: Optional[int] = None) -> HeadGeometry:
+    """Launch geometry at (B, D, n, V) with bf16 (or float32) profiles, on a
+    card that holds `capacity` score-stage blocks at once (None: the H100
+    default of ``score_stage``).  Raises where a launch cannot run."""
+    if min(b, d, n, v) < 1:
+        raise ValueError(f"loghd_head needs B, D, n, V >= 1, got "
+                         f"{(b, d, n, v)}")
+    if n > MAX_N:
+        raise ValueError(f"loghd_head takes 1 to {MAX_N} bundles, not {n}")
+    score = score_stage.score_geometry(b, v, n, 4, 2 if p_bf16 else 4,
+                                       capacity)
+    tile = 1 if b < ACT_ROWS_MIN else ACT_TILE
+    return HeadGeometry(act_grid=(-(-b // tile), -(-n // tile)),
+                        act_threads=ACT_THREADS, act_tile=tile,
+                        scratch=b * n, score=score)
 
 
 @functools.cache
-def _fn():
-    fn = _build.load("loghd_head").loghd_head_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-    fn.restype = _I
-    return fn
+def _lib():
+    lib = _build.load("loghd_head")
+    lib.loghd_head_launch.argtypes = [_P] * 5 + [_I] * 15 + [_P]
+    lib.loghd_head_launch.restype = _I
+    lib.loghd_head_capacity.argtypes = [_I] * 3
+    lib.loghd_head_capacity.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(device_index: int, b: int, d: int, n: int, v: int,
+                 p_bf16: bool) -> tuple:
+    """The score stage's geometry arguments of the C entry on this device,
+    with the blocks the card holds at once of the kernel this n compiles."""
+    base = loghd_head_geometry(1, d, n, v, p_bf16).score
+    with torch.cuda.device(device_index):
+        cap = _lib().loghd_head_capacity(base.ks, int(p_bf16),
+                                         base.smem_bytes)
+    if cap < 1:
+        raise RuntimeError(f"loghd_head: occupancy query failed ({cap})")
+    return loghd_head_geometry(b, d, n, v, p_bf16, cap).score.launch_args()
 
 
 def _check(h: torch.Tensor, m: torch.Tensor, p: torch.Tensor) -> None:
@@ -51,8 +108,8 @@ def _check(h: torch.Tensor, m: torch.Tensor, p: torch.Tensor) -> None:
         raise ValueError("loghd_head needs D > 0")
     if not 0 < n <= MAX_N:
         raise ValueError(f"loghd_head takes 1 to {MAX_N} bundles, not {n}")
-    if -(-b // _ROWS_PER_BLOCK) > 65535:
-        raise ValueError(f"loghd_head takes at most {65535 * _ROWS_PER_BLOCK} "
+    if b > score_stage.MAX_ROWS:
+        raise ValueError(f"loghd_head takes at most {score_stage.MAX_ROWS} "
                          f"rows, not {b}")
 
 
@@ -63,13 +120,19 @@ def loghd_head_logits(h: torch.Tensor, m: torch.Tensor,
     if not common.on_card(h, m, p):
         return loghd_head_logits_ref(h, m, p)
     (b, d), n, v = h.shape, m.shape[0], p.shape[0]
-    out = torch.empty((b, v), dtype=torch.float32, device=h.device)
     if b == 0 or v == 0:
-        return out
-    a = torch.empty((b, n), dtype=torch.float32, device=h.device)
-    bf = [int(t.dtype == torch.bfloat16) for t in (h, m, p)]
-    rc = _fn()(h.data_ptr(), m.data_ptr(), p.data_ptr(), a.data_ptr(),
-               out.data_ptr(), b, d, n, v, *bf, common.stream_of(h))
+        return torch.empty((b, v), dtype=torch.float32, device=h.device)
+    p_bf16 = p.dtype == torch.bfloat16
+    index = h.device.index
+    args = _launch_args(torch.cuda.current_device() if index is None
+                        else index, b, d, n, v, p_bf16)
+    buf = torch.empty(b * v + b * n, dtype=torch.float32, device=h.device)
+    out = buf[:b * v].view(b, v)
+    rc = _lib().loghd_head_launch(
+        h.data_ptr(), m.data_ptr(), p.data_ptr(), buf[b * v:].data_ptr(),
+        out.data_ptr(), b, d, n, v, int(h.dtype == torch.bfloat16),
+        int(m.dtype == torch.bfloat16), int(p_bf16), *args,
+        int(common.pdl_enabled()), common.stream_of(h))
     common.check_launch(rc, "loghd_head")
     common.launches["loghd_head"] += 1
     return out

@@ -7,6 +7,7 @@ each of them against these plain versions there.
 """
 
 import collections
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +38,8 @@ from repro_torch.kernels.hdc_encode import (hdc_encode, hdc_encode_plain,
                                             hdc_encode_ref)
 from repro_torch.kernels.hdc_encode import ops as he_ops
 from repro_torch.hdc.encoders import encode
+from repro_torch.kernels import score_stage
+from repro_torch.kernels.profile_decode import ops as pd_ops
 from repro_torch.kernels.profile_decode import profile_decode_scores
 
 # the JAX package's own kernel tolerances (tests/test_kernels.py)
@@ -507,3 +510,184 @@ def test_bundle_sim_geometry_matches_the_compiled_kernel():
     assert bs_ops.SMEM_MAX == 232448 - 128
     assert ("#define BS_BUNDLES(X) "
             + " ".join(f"X({k})" for k in bs_ops.KC_SIZES)) in src
+
+
+# ---- the score stage's launch geometry (profile_decode, and loghd_head's
+# second launch): a pure function of the shapes, checked again in C
+
+PD_GEO = [(b, n, c) for b in (1, 4, 64, 65, 1559) for n in (1, 7, 10, 20,
+                                                            33, 64)
+          for c in (5, 26, 70, 1001)] + [(64, 16, 65536), (3, 100, 33),
+                                         (300, 200, 10)]
+
+
+def _score_cover(geo, b, c):
+    """How often the launch writes each (row, profile): block (x, y), warp
+    w (warp column w % wc, warp row w // wc), row tiles w // wc + wr i, then
+    the staged tile's rows and columns, as csrc/score_stage.cuh walks
+    them."""
+    seen = np.zeros((b, c), dtype=np.int64)
+    rows_x, v_y = geo.grid
+    for x in range(rows_x):
+        r0 = x * geo.rows
+        nrow = min(geo.rows, b - r0)
+        for y in range(v_y):
+            v0 = y * geo.vb
+            cnt = min(geo.vb, c - v0)
+            for w in range(score_stage.WARPS):
+                vl = (w % geo.wc) * score_stage.WARP_V
+                if vl >= cnt:
+                    continue
+                for tile in range(w // geo.wc, geo.wr * geo.t, geo.wr):
+                    rl = tile * score_stage.TILE_ROWS
+                    if rl >= nrow:
+                        break
+                    rhere = min(score_stage.TILE_ROWS, b - (r0 + rl))
+                    chere = min(score_stage.WARP_V, c - (v0 + vl))
+                    seen[r0 + rl:r0 + rl + rhere,
+                         v0 + vl:v0 + vl + chere] += 1
+    return seen
+
+
+@pytest.mark.parametrize("b,n,c", PD_GEO)
+def test_profile_decode_geometry_covers_every_row_and_profile_once(b, n, c):
+    for bf16 in (False, True):
+        geo = pd_ops.profile_decode_geometry(b, n, c, bf16, 396)
+        assert geo.threads == score_stage.THREADS
+        assert geo.wc * geo.wr == score_stage.WARPS
+        assert geo.vb == score_stage.WARP_V * geo.wc
+        assert geo.rows == score_stage.TILE_ROWS * geo.wr * geo.t
+        assert geo.wr * geo.t <= score_stage.MAX_WARP_TILES
+        assert (_score_cover(geo, b, c) == 1).all()
+        # the k-steps cover n once: chunks x ks steps of 8, zeros past n
+        assert geo.n_pad == 8 * geo.ks * geo.chunks >= n > geo.n_pad - 8 * geo.ks
+
+
+def test_score_fragments_and_staging_cover_a_tile_once():
+    """mma.m16n8k8's accumulator entry e of lane (g, t) is row g + 8 (e // 2),
+    column 2 t + e % 2 of its n-tile: the four n-tiles of a warp stage each
+    of the 16 x 32 outputs once, and its A and B fragments read each k of a
+    step once per row and per profile."""
+    staged = collections.Counter()
+    a_read, b_read = collections.Counter(), collections.Counter()
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for nt in range(4):
+            for e in range(4):
+                staged[(g + 8 * (e // 2), 8 * nt + 2 * t + e % 2)] += 1
+            for e in range(2):
+                b_read[(8 * nt + g, t + 4 * e)] += 1
+        for e in range(4):
+            a_read[(g + 8 * (e % 2), t + 4 * (e // 2))] += 1
+    assert staged == {(r, col): 1 for r in range(16) for col in range(32)}
+    assert a_read == {(r, k): 1 for r in range(16) for k in range(8)}
+    assert b_read == {(v, k): 1 for v in range(32) for k in range(8)}
+
+
+@pytest.mark.parametrize("n,c", [(10, 26), (20, 26), (16, 65536), (40, 70),
+                                 (7, 45), (64, 151936), (100, 33)])
+def test_profile_decode_summation_order_does_not_depend_on_b(n, c):
+    """What fixes a row's sums (the k-steps and chunks of n) is the same for
+    every B, and rows and profiles sit at the same place of their MMA tile
+    (b % 16, c % 8) in every block, so a row's bits do not depend on B."""
+    bs = (1, 2, 15, 16, 17, 63, 64, 65, 512, 1559, 4096)
+    for bf16 in (False, True):
+        geos = [pd_ops.profile_decode_geometry(b, n, c, bf16, 396)
+                for b in bs]
+        assert len({(g.ks, g.chunks, g.n_pad) for g in geos}) == 1
+        assert all(g.rows % score_stage.TILE_ROWS == 0 for g in geos)
+        assert all(g.vb % 8 == 0 for g in geos)
+
+
+@pytest.mark.parametrize("c", [26, 70, 65536, 151936])
+def test_profile_decode_shared_memory_fits_at_every_n(c):
+    for n in range(1, 65):
+        for b in (1, 64, 1559):
+            for bf16 in (False, True):
+                geo = pd_ops.profile_decode_geometry(b, n, c, bf16, 396)
+                esize = 2 if bf16 else 4
+                held = score_stage.rows_held(geo.rows, b)
+                assert geo.smem_bytes == score_stage.smem_bytes(
+                    geo.vb, n, esize, held, esize)
+                assert geo.smem_bytes <= score_stage.SMEM_MAX < 227 * 1024
+
+
+def test_profile_decode_geometry_raises_where_it_cannot_launch():
+    for bad in ((0, 10, 26), (4, 0, 26), (4, 10, 0)):
+        with pytest.raises(ValueError, match="B, C, n >= 1"):
+            pd_ops.profile_decode_geometry(*bad)
+    pd_ops.profile_decode_geometry(score_stage.MAX_ROWS, 10, 26)
+    with pytest.raises(ValueError, match="rows exceed"):
+        pd_ops.profile_decode_geometry(score_stage.MAX_ROWS + 1, 10, 26)
+    # profiles too wide for one block's shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        pd_ops.profile_decode_geometry(64, 5000, 26)
+    # more spans of 256 profiles than a grid's y takes
+    with pytest.raises(ValueError, match="blocks of 256 profiles"):
+        pd_ops.profile_decode_geometry(4, 10, 256 * score_stage.GRID_Y + 1)
+    for cap in (0, -2):
+        with pytest.raises(RuntimeError, match="holds"):
+            pd_ops.profile_decode_geometry(4, 10, 26, False, cap)
+    with pytest.raises(ValueError, match="bytes"):
+        score_stage.score_geometry(4, 26, 10, 4, 8)
+
+
+def test_score_geometry_matches_the_compiled_kernel():
+    """The constants score_stage.py computes with are the ones
+    csrc/score_stage.cuh compiles, and both kernels' sources use it."""
+    src = (_build.CSRC / "score_stage.cuh").read_text()
+    assert f"constexpr int kThreads = {score_stage.THREADS};" in src
+    assert "constexpr int kWarps = kThreads / 32;" in src
+    assert score_stage.WARPS == score_stage.THREADS // 32
+    assert f"constexpr int kWarpV = {score_stage.WARP_V};" in src
+    assert f"constexpr int kTileRows = {score_stage.TILE_ROWS};" in src
+    assert f"constexpr int kMaxWarpTiles = {score_stage.MAX_WARP_TILES};" in src
+    assert "constexpr int kStagePitch = kWarpV + 4;" in src
+    assert score_stage.STAGE_PITCH == score_stage.WARP_V + 4
+    assert f"constexpr int kHoldSteps = {score_stage.HOLD_STEPS};" in src
+    assert f"constexpr int kChunkSteps = {score_stage.CHUNK_STEPS};" in src
+    assert "constexpr int kSmemMax = 232448 - 1024;" in src
+    assert score_stage.SMEM_MAX == 232448 - 1024
+    assert ("#define SCORE_STEPS(X) "
+            + " ".join(f"X({k})" for k in score_stage.KS_SIZES)) in src
+    assert "return n <= 16 ? 2 : n <= 24 ? 3 : n <= 32 ? 4 : kChunkSteps;" in src
+    assert [score_stage.steps_for(n) for n in (1, 16, 17, 24, 25, 32, 33, 64,
+                                               65)] == [2, 2, 3, 3, 4, 4, 8,
+                                                        8, 8]
+    for name in ("profile_decode", "loghd_head"):
+        assert [p.name for p in _build.sources(name)] == [
+            f"{name}.cu", "score_stage.cuh"]
+
+
+def test_build_hash_covers_included_headers(tmp_path):
+    """Editing a header a kernel includes changes that kernel's library
+    name, so a stale build is never reused; other kernels keep theirs."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    before = {n: _build.library_path(n, csrc) for n in _build.kernel_names()}
+    assert before == {n: _build.library_path(n) for n in _build.kernel_names()}
+    header = csrc / "score_stage.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n, csrc) for n in _build.kernel_names()}
+    for name in _build.kernel_names():
+        changed = name in ("profile_decode", "loghd_head")
+        assert (after[name] != before[name]) == changed, name
+
+
+def test_pdl_switch_and_cpu_route():
+    """``pdl=True`` changes nothing on the CPU (the plain version, no
+    launch); ``common.pdl`` switches the chained launches off inside its
+    block and restores the setting after it, also on an error."""
+    a, p = torch.randn(5, 7), torch.randn(9, 7)
+    common.reset_launches()
+    assert torch.equal(profile_decode_scores(a, p, pdl=True),
+                       profile_decode_scores(a, p))
+    assert sum(common.launches.values()) == 0
+    assert common.pdl_enabled()
+    with common.pdl(False):
+        assert not common.pdl_enabled()
+    assert common.pdl_enabled()
+    with pytest.raises(KeyError):
+        with common.pdl(False):
+            raise KeyError("x")
+    assert common.pdl_enabled()

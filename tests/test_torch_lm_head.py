@@ -7,6 +7,8 @@ The CUDA kernel runs only on the card; ``chip_smoke.py`` holds it against
 this plain version there.
 """
 
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,9 +18,10 @@ from repro.api.dispatch import loghd_head_scores as jax_loghd_head_scores
 from repro.kernels.loghd_head.ops import loghd_head_logits as jax_loghd_head
 from repro.kernels.loghd_head.ref import loghd_head_logits_ref as jax_lh_ref
 from repro_torch.api.dispatch import loghd_head_scores
-from repro_torch.kernels import common
+from repro_torch.kernels import _build, common, score_stage
 from repro_torch.kernels.loghd_head import (MAX_N, loghd_head_logits,
                                             loghd_head_logits_ref)
+from repro_torch.kernels.loghd_head import ops as lh_ops
 
 # tests/test_kernels.py's LH_SHAPES (B, D, n, V), and the LM's decode step
 # at qwen3-1.7b's width: 4 slots, D = 2048, n = 20 bundles, V = 151,936
@@ -125,3 +128,99 @@ def test_argument_checks():
     # empty batches and vocabularies are fine
     assert loghd_head_logits(h[:0], m, p).shape == (0, 100)
     assert loghd_head_logits(h, m, p[:0]).shape == (4, 0)
+
+
+# ---- loghd_head's launch geometry: the A stage, then the score stage of
+# kernels/score_stage.py; a pure function of the shapes, checked again in C
+
+LH_GEO = [(b, d, n, v) for b in (1, 4, 63, 64, 65, 512) for d in (256, 2048)
+          for n in (1, 4, 18, 20, 33, 64) for v in (64, 1003, 4096)]
+
+
+@pytest.mark.parametrize("b,d,n,v", LH_GEO)
+def test_geometry_covers_every_row_and_column_once(b, d, n, v):
+    for p_bf16 in (True, False):
+        geo = lh_ops.loghd_head_geometry(b, d, n, v, p_bf16, 396)
+        # the A stage: blocks of act_rows rows x act_bundles bundles
+        tile = geo.act_tile
+        assert tile == (1 if b < lh_ops.ACT_ROWS_MIN else lh_ops.ACT_TILE)
+        acts = collections.Counter(
+            (x * tile + r, y * tile + q) for x in range(geo.act_grid[0])
+            for y in range(geo.act_grid[1]) for r in range(tile)
+            for q in range(tile) if x * tile + r < b and y * tile + q < n)
+        assert acts == {(r, j): 1 for r in range(b) for j in range(n)}
+        assert geo.scratch == b * n and geo.act_threads == 256
+        # the score stage: every (row, vocab entry) once
+        s = geo.score
+        seen = np.zeros((b, v), dtype=np.int64)
+        for x in range(s.grid[0]):
+            r0 = x * s.rows
+            for y in range(s.grid[1]):
+                v0 = y * s.vb
+                for w in range(score_stage.WARPS):
+                    vl = (w % s.wc) * score_stage.WARP_V
+                    if vl >= min(s.vb, v - v0):
+                        continue
+                    for tile_i in range(w // s.wc, s.wr * s.t, s.wr):
+                        rl = tile_i * score_stage.TILE_ROWS
+                        if rl >= min(s.rows, b - r0):
+                            break
+                        seen[r0 + rl:r0 + rl + min(16, b - r0 - rl),
+                             v0 + vl:v0 + vl + min(32, v - v0 - vl)] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n", [4, 18, 20, 33, 64])
+def test_geometry_summation_order_does_not_depend_on_b(n):
+    """A's sums run in the one order of a single dot product in either
+    A-stage block shape, and the score stage's k-steps and chunks come from
+    n alone, rows and vocab entries sitting at b % 16 and v % 8 of their MMA
+    tiles in every block."""
+    geos = [lh_ops.loghd_head_geometry(b, 2048, n, 151936, True, 396)
+            for b in (1, 2, 4, 16, 63, 64, 65, 512, 2048)]
+    assert len({(g.score.ks, g.score.chunks, g.score.n_pad) for g in geos}) == 1
+    assert all(g.score.rows % 16 == 0 and g.score.vb % 8 == 0 for g in geos)
+    assert {g.act_threads for g in geos} == {lh_ops.ACT_THREADS}
+
+
+def test_geometry_shared_memory_fits_at_every_n():
+    for n in range(1, lh_ops.MAX_N + 1):
+        for b in (1, 4, 64, 512):
+            for p_bf16 in (True, False):
+                s = lh_ops.loghd_head_geometry(b, 2048, n, 151936, p_bf16,
+                                               396).score
+                assert s.smem_bytes == score_stage.smem_bytes(
+                    s.vb, n, 2 if p_bf16 else 4,
+                    score_stage.rows_held(s.rows, b), 4)
+                assert s.smem_bytes <= score_stage.SMEM_MAX < 227 * 1024
+
+
+def test_geometry_raises_where_it_cannot_launch():
+    for bad in ((0, 2048, 20, 100), (4, 0, 20, 100), (4, 2048, 0, 100),
+                (4, 2048, 20, 0)):
+        with pytest.raises(ValueError, match="B, D, n, V >= 1"):
+            lh_ops.loghd_head_geometry(*bad)
+    with pytest.raises(ValueError, match="bundles"):
+        lh_ops.loghd_head_geometry(4, 2048, MAX_N + 1, 100)
+    with pytest.raises(ValueError, match="rows exceed"):
+        lh_ops.loghd_head_geometry(score_stage.MAX_ROWS + 1, 16, 4, 100)
+    with pytest.raises(ValueError, match="blocks of 256 profiles"):
+        lh_ops.loghd_head_geometry(4, 16, 4, 256 * score_stage.GRID_Y + 1)
+    with pytest.raises(RuntimeError, match="holds"):
+        lh_ops.loghd_head_geometry(4, 2048, 20, 100, True, 0)
+
+
+def test_geometry_matches_the_compiled_kernel():
+    """The A stage's constants in ops.py are the ones csrc/loghd_head.cu
+    compiles, and its score stage is csrc/score_stage.cuh's."""
+    src = (_build.CSRC / "loghd_head.cu").read_text()
+    assert f"constexpr int kMaxN = {MAX_N};" in src
+    assert f"constexpr int kActThreads = {lh_ops.ACT_THREADS};" in src
+    assert f"constexpr int kActRowsMin = {lh_ops.ACT_ROWS_MIN};" in src
+    t = lh_ops.ACT_TILE
+    assert f"acts_kernel<TH, TM, {t}, {t}><<<dim3((B + {t - 1}) / {t}, " \
+           f"(n + {t - 1}) / {t})" in src
+    assert "acts_kernel<TH, TM, 1, 1><<<dim3(B, n)" in src
+    assert '#include "score_stage.cuh"' in src
+    assert [p.name for p in _build.sources("loghd_head")] == [
+        "loghd_head.cu", "score_stage.cuh"]
