@@ -6,7 +6,8 @@ Run from the root of a checkout, with one card visible:
 
     mkdir -p build/ab_parent
     git archive PARENT_COMMIT | tar -x -C build/ab_parent
-    python3 chip_kernel_ab.py build/ab_parent [OTHER_CHECKOUT ...]
+    python3 chip_kernel_ab.py [--only flip_corrupt] build/ab_parent \
+        [OTHER_CHECKOUT ...]
 
 Each argument is the root of another checkout of this repo.  Every
 checkout runs in a process of its own, which builds that checkout's
@@ -33,7 +34,13 @@ Shapes: ``bundle_sim`` at ``chip_smoke.BS_TIME_SHAPES``, ``hdc_encode`` at
 ``bundle_update`` at each matched-memory family's minibatch (n, B, D),
 ``profile_decode`` at ``chip_smoke.PD_SHAPES`` (float32) and
 ``loghd_head`` at B = 4 and 512 of qwen3-1.7b's head (D = 2,048, n = 20,
-V = 151,936; bf16 h and M, bf16 and float32 P).  Prints one JSON line per
+V = 151,936; bf16 h and M, bf16 and float32 P), ``flip_corrupt`` at one
+point of (10, 10,000) 4-bit codes and at the sweeps' chunks (``FC_CHUNKS``,
+18 points each: the batched ``flip_corrupt_grid`` launch, or in a
+checkout without it the chunk's 36 or 18 one-point launches, as device
+time summed over the launches and as the span of the sequence in a CUDA
+graph), then the sweeps' walls through ``sweep_under_flips``.  ``--only
+flip_corrupt`` times those last two alone.  Prints one JSON line per
 process and shape, then the card's name and power limit.
 """
 
@@ -54,6 +61,10 @@ ENC_F, ENC_D = 617, 10000
 # records the same from the fits it runs)
 UPD_SHAPES = [(10, 64, 10000), (20, 64, 10000), (26, 64, 4000),
               (26, 256, 10000)]
+# flip_corrupt's sweep chunks: (name, leaf shapes, bits)
+FC_CHUNKS = [("loghd all", [(10, 10000), (26, 10)], 1),
+             ("loghd all", [(10, 10000), (26, 10)], 4),
+             ("conventional hv", [(26, 10000)], 1)]
 LR = 3e-4
 
 
@@ -72,8 +83,9 @@ def host_us(torch, fn, calls: int = 400) -> float:
     return host
 
 
-def time_checkout(checkout: Path) -> None:
-    """Build `checkout`'s kernels and print a row per shape."""
+def time_checkout(checkout: Path, only: list) -> None:
+    """Build `checkout`'s kernels and print a row per shape (only
+    flip_corrupt's and the sweeps' when `only` is ["flip_corrupt"])."""
     import torch
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(checkout / "src"))
@@ -100,6 +112,9 @@ def time_checkout(checkout: Path) -> None:
         print(json.dumps({"checkout": name, "kernel": kernel, **row}),
               flush=True)
 
+    if only == ["flip_corrupt"]:
+        time_flips(torch, cs, dev, g, emit, name)
+        return
     for shape in cs.BS_TIME_SHAPES:
         h, m = cs.bs_inputs(torch, dev, g, *shape)
         emit("bundle_sim", shape, cs.bs_case(torch, h, m),
@@ -121,6 +136,64 @@ def time_checkout(checkout: Path) -> None:
              span_ms=cs.graph_span_ms(torch, case["kernel"]))
     time_pairs(torch, cs, dev, g, name)
     time_head(torch, cs, dev, g, emit)
+    time_flips(torch, cs, dev, g, emit, name)
+
+
+def time_flips(torch, cs, dev, g, emit, name: str) -> None:
+    """flip_corrupt at one point of (10, 10,000) 4-bit codes (p = 0.1)
+    and at the sweeps' chunks, 6 p x 3 trials = 18 points with the sweeps'
+    seeds: LogHD "all" at 1 and 4 bits (bundles (10, 10,000) and profiles
+    (26, 10)) and conventional "hv" at 1 bit (prototypes (26, 10,000)), on
+    random codes.  A checkout without ``flip_corrupt_grid`` runs a chunk
+    as its G x L one-point launches.  Then the sweeps' walls through
+    ``sweep_under_flips`` on isolet models fitted without refinement."""
+    leaves = cs.fc_leaves(torch, dev, g, [(10, 10000)], 4)
+    case = cs.fc_case(torch, leaves, [0.1], [[7]])
+    emit("flip_corrupt", [1, [10, 10000]], case, ("kernel", "plain"),
+         bits=4, points=1, span_ms=cs.graph_span_ms(torch, case["kernel"]))
+    for fam, shapes, bits in FC_CHUNKS:
+        leaves = cs.fc_leaves(torch, dev, g, shapes, bits)
+        ps, seeds = cs.sweep_points(len(shapes))
+        case = cs.fc_case(torch, leaves, ps, seeds)
+        emit("flip_corrupt", [len(ps)] + [list(s) for s in shapes], case,
+             ("kernel",), name=fam, bits=bits, points=len(ps),
+             batched=case["batched"],
+             launches=cs.fc_launches(case["kernel"]),
+             span_ms=cs.graph_span_ms(torch, case["kernel"]))
+    time_sweeps(torch, cs, name)
+
+
+def time_sweeps(torch, cs, name: str, reps: int = 5) -> None:
+    """Wall seconds of the sweeps chip_smoke.py runs (isolet, 6 p x 3
+    trials): LogHD "all" at 1 and 4 bits, conventional "hv" at 1 bit, each
+    the median of `reps`, on models fitted without refinement."""
+    import statistics
+    from repro_torch.api import dispatch, make_classifier
+    from repro_torch.data.synth import load_dataset
+    x_tr, y_tr, x_te, y_te, spec = load_dataset("isolet")
+    loghd = make_classifier("loghd", spec.n_classes, spec.n_features,
+                            dim=10_000, k=2, extra_bundles=5,
+                            refine_epochs=0,
+                            codebook_method="distance").fit(x_tr, y_tr)
+    conv = make_classifier("conventional", spec.n_classes, spec.n_features,
+                           dim=10_000, refine_epochs=0).fit(x_tr, y_tr)
+    for fam, clf, bits, scope in (("loghd all", loghd, 1, "all"),
+                                  ("loghd all", loghd, 4, "all"),
+                                  ("conventional hv", conv, 1, "hv")):
+        h = clf.encode(x_te)
+        walls = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clf.sweep_under_flips(bits, cs.P_GRID, h, y_te,
+                                  n_trials=cs.N_TRIALS, scope=scope,
+                                  predict_encoded=dispatch.predict_encoded,
+                                  generator=torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(json.dumps({"checkout": name, "kernel": "sweep", "name": fam,
+                          "bits": bits, "wall_s": statistics.median(
+                              walls[1:]), "walls_s": walls[1:]}), flush=True)
 
 
 def time_pairs(torch, cs, dev, g, name: str) -> None:
@@ -193,11 +266,18 @@ def time_head(torch, cs, dev, g, emit) -> None:
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--one"]:
-        time_checkout(Path(sys.argv[2]).resolve())
+    args = sys.argv[1:]
+    only = []
+    if args[:1] == ["--only"]:
+        only, args = args[1].split(","), args[2:]
+    if args[:1] == ["--one"]:
+        time_checkout(Path(args[1]).resolve(), only)
         return 0
     import torch
-    others = [Path(a).resolve() for a in sys.argv[1:]]
+    if only not in ([], ["flip_corrupt"]):
+        print("--only takes flip_corrupt", file=sys.stderr)
+        return 1
+    others = [Path(a).resolve() for a in args]
     if not torch.cuda.is_available() or not others:
         print("usage (on a card): python3 chip_kernel_ab.py CHECKOUT ...",
               file=sys.stderr)
@@ -210,6 +290,7 @@ def main() -> int:
     import chip_smoke as cs
     for checkout in others + [ROOT, ROOT] + others[::-1]:
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        *(["--only", ",".join(only)] if only else []),
                         "--one", str(checkout)], check=True, timeout=900)
     print(cs.nvidia_smi(), flush=True)
     return 0

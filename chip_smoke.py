@@ -13,7 +13,8 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
 
 1. LogHD without refinement (``make_classifier("loghd", ..., k=2,
    extra_bundles=5, refine_epochs=0)``) -> fit -> predict -> the 1-bit and
-   4-bit bit-flip sweeps;
+   4-bit bit-flip sweeps (6 p x 3 trials in one p-chunk: one batched
+   ``flip_corrupt`` launch a sweep);
 2. the matched-memory comparison at budget 0.4 on one shared encoder,
    encodings and prototypes (``benchmarks/common.py``): LogHD (n=10, 50
    Eq. 9 epochs), SparseHD (sparsity 0.6, 30 OnlineHD epochs), hybrid
@@ -37,7 +38,10 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    tokens, 4 slots, 16 new tokens, ``max_len`` 256, greedy) in bfloat16,
    once with the loghd head and once with the dense head.
 
-It checks each kernel against its plain version (``bundle_sim`` also at the
+It checks each kernel against its plain version (``flip_corrupt`` bit for
+bit, batched over 1 and 18 points at bits 1, 2, 4 and 8 on LogHD's,
+conventional's and ragged leaves, also against the one-point launches;
+``bundle_sim`` also at the
 serving shapes, with rows bitwise equal at B = 1, 64 and 1,559 and two
 launches equal; ``profile_decode`` at ``PD_SHAPES``, the extreme C = 2^16
 among them, with rows bitwise equal at B = 1, 64 and 1,559, two launches
@@ -51,7 +55,9 @@ serving-bucket and full-batch calls), that fits repeat bit for bit (the
 LogHD repeat with TF32 turned on globally, watching that every matmul of
 the fit runs in full float32), that kernel and plain predict and training
 agree, that each sweep's p=0 row equals the clean accuracy of the
-quantized model, that an encoded row has the same bits at B = 1, 64 and
+quantized model, that each sweep launches ``flip_corrupt`` once and gives
+the accuracy matrix of the per-point loop and of ``p_chunk=4`` bit for bit
+(their walls and the sweep's device idle share printed beside), that an encoded row has the same bits at B = 1, 64 and
 1,559, that served labels equal ``predict`` of the loaded model (of
 its int8 quantization for the int8 residency), that ``loghd_head`` rows
 are bitwise independent of the batch, that the LM's decode matches its
@@ -68,7 +74,9 @@ Output: the serving rates and latencies, the LM's tokens/s and the wall,
 device time and idle share of one decode step, a JSON line with one entry per
 kernel (``bundle_sim`` at B = 1, 64, 1,559 against n = 10 and 26 bundles,
 ``hdc_encode`` at B = 1, 64 and 1,559, ``bundle_update`` at each
-family's minibatch, ``profile_decode`` at ``PD_SHAPES`` and ``loghd_head``
+family's minibatch, ``flip_corrupt`` at one point and at the sweeps'
+18-point chunks, beside the chunk's one-point launches, with the sweeps'
+walls under ``sweeps``, ``profile_decode`` at ``PD_SHAPES`` and ``loghd_head``
 at B = 4 and 512 with bf16 and float32 profiles under ``shapes``;
 ``profile_decode``'s chained pair and the launch floor under ``chains``;
 ``bundle_sim``'s launches by batch under ``launches_by_batch``), the number
@@ -315,8 +323,6 @@ def phase_kernels(torch, dev) -> dict:
                                                 bundle_similarity_ref)
     from repro_torch.kernels.bundle_update import (bundle_update,
                                                    bundle_update_ref)
-    from repro_torch.kernels.flip_corrupt import (flip_corrupt,
-                                                  flip_corrupt_ref)
     from repro_torch.kernels.profile_decode import (profile_decode_scores,
                                                     profile_decode_scores_ref)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -362,27 +368,7 @@ def phase_kernels(torch, dev) -> dict:
             if (b, n, c) == (1559, 10, 26) and dtype == torch.float32:
                 errs["profile_decode"] = err
     check_profile_decode_rows(torch, dev, g)
-    worst = 0.0
-    for shape in [(10, 10000), (26, 10)]:
-        for bits in (1, 4, 8):
-            lo, hi = (0, 2) if bits == 1 else (-(1 << (bits - 1)),
-                                               1 << (bits - 1))
-            codes = torch.randint(lo, hi, shape, generator=g, device=dev,
-                                  dtype=torch.int64).to(torch.int8)
-            scale = torch.tensor(0.0123, device=dev)
-            for p in (0.0, 0.1, 1.0):
-                for seed in (42, (1 << 31) - 1):
-                    got = flip_corrupt(codes, scale, bits, p, seed)
-                    want = flip_corrupt_ref(codes, scale, p, seed, bits=bits)
-                    torch.cuda.synchronize()
-                    check(torch.equal(got.view(torch.int32),
-                                      want.view(torch.int32)),
-                          f"flip_corrupt not bit-exact at {shape} bits={bits} "
-                          f"p={p} seed={seed}")
-                    worst = max(worst, max_err(got, want))
-    log(f"flip_corrupt: bit-exact over 2 shapes x bits {{1,4,8}} x "
-        f"p {{0,0.1,1}} x 2 seeds")
-    errs["flip_corrupt"] = worst
+    errs["flip_corrupt"] = check_flip_corrupt(torch, dev, g)
     # (n, B, D): LogHD refine, hybrid base, SparseHD retrain at budget 0.4,
     # conventional, then n > 32, everything ragged, and more tiles than the
     # card holds blocks at once (blocks walk several tiles)
@@ -413,6 +399,136 @@ def phase_kernels(torch, dev) -> dict:
             errs["bundle_update"] = err
     errs["hdc_encode"] = check_hdc_encode(torch, dev, g)
     return errs
+
+
+def sweep_points(n_leaves: int, ps=P_GRID, n_trials: int = N_TRIALS):
+    """A sweep chunk's (p, trial) points, p-major as the sweep orders them:
+    their ps, and their seed rows (one int32 seed per leaf, the trial's
+    row of ``trial_seeds`` from a CPU generator seeded with 0, the seeds
+    of the sweeps this script runs)."""
+    import torch
+    from repro_torch.core.evaluate import trial_seeds
+    rows = trial_seeds(torch.Generator().manual_seed(0), n_trials, n_leaves)
+    return ([p for p in ps for _ in range(n_trials)], rows * len(ps))
+
+
+def fc_leaves(torch, dev, g, shapes, bits):
+    """Random int8 codes of `bits` significant bits at each shape (a shape
+    given as ("offset", n) is an n-code view one byte into its storage:
+    4-byte loads cannot take it), each with a float32 scale."""
+    leaves = []
+    for j, shape in enumerate(shapes):
+        b = bits[j] if isinstance(bits, (list, tuple)) else bits
+        lo, hi = (0, 2) if b == 1 else (-(1 << (b - 1)), 1 << (b - 1))
+        off = shape[0] == "offset"
+        n = (shape[1] + 1,) if off else shape
+        codes = torch.randint(lo, hi, n, generator=g, device=dev,
+                              dtype=torch.int64).to(torch.int8)
+        codes = codes[1:] if off else codes
+        leaves.append((codes, torch.tensor(0.0123 * (j + 1), device=dev), b))
+    return leaves
+
+
+def fc_differing(torch, got, want) -> int:
+    """Elements whose float32 bits differ between two lists of outputs."""
+    return sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+               for a, b in zip(got, want))
+
+
+def check_flip_corrupt(torch, dev, g) -> float:
+    """flip_corrupt bitwise against its plain version: the one-point call
+    at the sweep's two LogHD leaves; the batched call at G = 1 and 18 (the
+    sweep's chunk, one point at p = 1) over bits 1, 2, 4, 8 and three leaf
+    sets (LogHD's bundles and profiles, conventional's prototypes, and
+    ragged leaves: 21 codes, 100,001 codes in a view off 4-byte alignment,
+    4 x 333; at 18 points each set takes two groups a thread), also
+    against G x L one-point launches; mixed bits in one launch; and the
+    calls that take two launches (130 points, 5 leaves).  Returns the max
+    abs error (0 when every check passes)."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flip_corrupt import (flip_corrupt,
+                                                  flip_corrupt_grid,
+                                                  flip_corrupt_grid_ref,
+                                                  flip_corrupt_ref)
+    from repro_torch.kernels.flip_corrupt.ops import MAX_POINTS, _wave
+    log(f"flip_corrupt: one wave of the card is "
+        f"{_wave(torch.cuda.current_device())} one-group blocks")
+    worst = 0.0
+    for shape in [(10, 10000), (26, 10)]:
+        for bits in (1, 4, 8):
+            (codes, scale, _), = fc_leaves(torch, dev, g, [shape], bits)
+            for p in (0.0, 0.1, 1.0):
+                for seed in (42, (1 << 31) - 1):
+                    got = flip_corrupt(codes, scale, bits, p, seed)
+                    want = flip_corrupt_ref(codes, scale, p, seed, bits=bits)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got.view(torch.int32),
+                                      want.view(torch.int32)),
+                          f"flip_corrupt not bit-exact at {shape} bits={bits} "
+                          f"p={p} seed={seed}")
+                    worst = max(worst, max_err(got, want))
+    sets = {"loghd": [(10, 10000), (26, 10)], "conventional": [(26, 10000)],
+            "ragged": [(21,), ("offset", 100001), (4, 333)]}
+    n_cases = 0
+    for name, shapes in sets.items():
+        for bits in (1, 2, 4, 8):
+            leaves = fc_leaves(torch, dev, g, shapes, bits)
+            for n_points in (1, 18):
+                ps, seeds = sweep_points(len(shapes))
+                if n_points == 1:
+                    ps, seeds = [0.1], seeds[:1]
+                else:
+                    ps[-1] = 1.0
+                    seeds[0] = [-(1 << 31)] + seeds[0][1:]
+                before = common.launches["flip_corrupt"]
+                got = flip_corrupt_grid(leaves, ps, seeds)
+                launched = common.launches["flip_corrupt"] - before
+                want = flip_corrupt_grid_ref(leaves, ps, seeds)
+                single = [torch.stack([
+                    flip_corrupt(codes, scale, b, ps[k], seeds[k][j])
+                    for k in range(n_points)])
+                    for j, (codes, scale, b) in enumerate(leaves)]
+                torch.cuda.synchronize()
+                d_plain = fc_differing(torch, got, want)
+                d_single = fc_differing(torch, got, single)
+                check(launched == 1, f"flip_corrupt_grid {name} launched "
+                      f"{launched} times, not once")
+                check(all(o.shape == (n_points, *c.shape)
+                          for o, (c, _, _) in zip(got, leaves)),
+                      "flip_corrupt_grid output shapes")
+                check(d_plain == 0 and d_single == 0,
+                      f"flip_corrupt_grid {name} bits={bits} G={n_points}: "
+                      f"{d_plain} elements differ from plain, {d_single} "
+                      f"from one-point launches")
+                worst = max([worst] + [max_err(a, b)
+                                       for a, b in zip(got, want)])
+                n_cases += 1
+    # mixed bits in one launch; more points and more leaves than one launch
+    # takes
+    leaves = fc_leaves(torch, dev, g, sets["loghd"] + sets["ragged"],
+                       [4, 1, 8, 2, 3])
+    for n_leaves, n_points, launches in ((2, 18, 1), (3, MAX_POINTS + 2, 2),
+                                         (5, 3, 2)):
+        ps = [(k % 7) / 6 for k in range(n_points)]
+        seeds = [[(7919 * k + 104729 * j) % (1 << 31) for j in range(n_leaves)]
+                 for k in range(n_points)]
+        sub = leaves[:n_leaves] if n_leaves != 3 else leaves[2:]
+        before = common.launches["flip_corrupt"]
+        got = flip_corrupt_grid(sub, ps, seeds)
+        launched = common.launches["flip_corrupt"] - before
+        want = flip_corrupt_grid_ref(sub, ps, seeds)
+        torch.cuda.synchronize()
+        diff = fc_differing(torch, got, want)
+        check(diff == 0 and launched == launches,
+              f"flip_corrupt_grid {n_leaves} leaves x {n_points} points: "
+              f"{diff} elements differ, {launched} launches (want "
+              f"{launches})")
+        n_cases += 1
+    log(f"flip_corrupt: one-point calls bit-exact over 2 shapes x bits "
+        f"{{1,4,8}} x p {{0,0.1,1}} x 2 seeds; batched calls bit-exact "
+        f"against plain and against one-point launches in {n_cases} cases "
+        f"(0 elements differ)")
+    return worst
 
 
 def check_bundle_sim_rows(torch, dev, g) -> None:
@@ -643,15 +759,87 @@ def phase_main_path(torch, dev) -> dict:
             log(f"  p={p:<5} " + " ".join(f"{a:.4f}" for a in row))
         check(all(a == qacc for a in accs[0]),
               f"bits={bits}: p=0 row {accs[0]} != clean quantized {qacc}")
-        want = len(P_GRID) * N_TRIALS * 2
-        check(n_flip == want,
-              f"bits={bits}: flip_corrupt launched {n_flip} times, not {want}")
+        # one p-chunk (the whole grid by default), one launch
+        check(n_flip == 1,
+              f"bits={bits}: flip_corrupt launched {n_flip} times, not once")
     log(f"wall: fit {fit_s:.3f} s, predict {predict_s:.3f} s "
         f"(encode + kernels), sweeps {sweep_s:.3f} s")
+    walls = {bits: check_sweep_forms(torch, model, h_te, y_te, bits, "all",
+                                     accs)
+             for bits, (accs, _) in sweeps.items()}
     return {"launches": launches, "bs_batches": batches, "model": model,
             "h_te": h_te,
             "x_te": x_te, "acc": acc, "fit_s": fit_s,
-            "predict_s": predict_s, "sweep_s": sweep_s}
+            "predict_s": predict_s, "sweep_s": sweep_s,
+            "sweep_walls": walls}
+
+
+def per_point_sweep(torch, model, bits: int, h, y, scope: str):
+    """The sweep as a loop over its (p, trial) points, each corrupted by
+    its own ``corrupted_materialized`` (one one-point ``flip_corrupt``
+    launch per stored int leaf, the parent's sweep), with the sweep's
+    seeds; the (p, trial) accuracy matrix as numpy."""
+    from repro_torch.api import dispatch
+    qmodel = model.quantized(bits)
+    n_leaves = len(qmodel.to_dict()) - 1
+    _, rows = sweep_points(n_leaves, ps=[0.0])
+    y = torch.as_tensor(y, device=h.device)
+    accs = torch.empty((len(P_GRID), N_TRIALS), device=h.device)
+    for i, p in enumerate(P_GRID):
+        for t in range(N_TRIALS):
+            noisy = qmodel.corrupted_materialized(p, rows[t], scope)
+            accs[i, t] = (dispatch.predict_encoded(noisy, h) == y).float(
+            ).mean()
+    return accs.cpu().numpy()
+
+
+def check_sweep_forms(torch, model, h, y, bits: int, scope: str,
+                      accs) -> dict:
+    """The sweep `accs` (one chunk) against the per-point loop and against
+    ``p_chunk=4`` (two chunks, the second padded: two launches): the same
+    accuracy matrix bit for bit.  Returns the walls in seconds of the
+    per-point loop and the one-chunk sweep, timed in the order loop,
+    sweep, sweep, loop."""
+    import numpy as np
+    from repro_torch.api import dispatch
+    from repro_torch.kernels import common
+
+    def sweep(**kw):
+        return model.sweep_under_flips(
+            bits, P_GRID, h, y, n_trials=N_TRIALS, scope=scope,
+            predict_encoded=dispatch.predict_encoded,
+            generator=torch.Generator().manual_seed(0), **kw)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    before = common.launches["flip_corrupt"]
+    chunked = sweep(p_chunk=4)
+    n_chunked = common.launches["flip_corrupt"] - before
+    loop, t_loop1 = wall(lambda: per_point_sweep(torch, model, bits, h, y,
+                                                 scope))
+    _, t_new1 = wall(sweep)
+    _, t_new2 = wall(sweep)
+    _, t_loop2 = wall(lambda: per_point_sweep(torch, model, bits, h, y,
+                                              scope))
+    check(np.array_equal(loop, accs) and np.array_equal(chunked, accs),
+          f"bits={bits} scope={scope}: the sweep differs from the per-point "
+          f"loop or from p_chunk=4")
+    check(n_chunked == 2, f"p_chunk=4 launched flip_corrupt {n_chunked} "
+          f"times, not twice")
+    busy, count, _ = profile_calls(torch, sweep, calls=2)
+    idle = 1.0 - busy / 1e3 / min(t_new1, t_new2)
+    log(f"sweep bits={bits} scope={scope}: equal to the per-point loop and "
+        f"to p_chunk=4 (2 launches); wall, one chunk {t_new1:.4f} / "
+        f"{t_new2:.4f} s, per-point loop (the parent's sweep) {t_loop1:.4f} "
+        f"/ {t_loop2:.4f} s; a sweep's device work {busy:.4f} ms in "
+        f"{count:.0f} kernels and copies, idle {idle:.4f} of the faster wall")
+    return {"chunk_s": [t_new1, t_new2], "per_point_s": [t_loop1, t_loop2],
+            "device_ms": busy, "device_events": count, "idle": idle}
 
 
 class MatmulWatch:
@@ -786,11 +974,10 @@ def phase_matched_memory(torch, dev) -> dict:
         if name in ("loghd", "hybrid"):
             check(r["launches"].get("profile_decode", 0) > 0,
                   f"{name}: profile_decode never launched")
-        want_flips = len(P_GRID) * N_TRIALS
-        check(r["launches"].get("flip_corrupt", 0) == want_flips,
+        # one p-chunk (the whole grid by default), one launch
+        check(r["launches"].get("flip_corrupt", 0) == 1,
               f"{name}: flip_corrupt launched "
-              f"{r['launches'].get('flip_corrupt', 0)} times, not "
-              f"{want_flips}")
+              f"{r['launches'].get('flip_corrupt', 0)} times, not once")
         acc = float((r["labels"] == y_dev).float().mean())
         plain = dispatch.predict_encoded(model, h_te, use_kernels=False)
         agree = float((plain == r["labels"]).float().mean())
@@ -811,6 +998,8 @@ def phase_matched_memory(torch, dev) -> dict:
         check(r["accs"].shape == (len(P_GRID), N_TRIALS), "sweep shape")
         check(all(a == qacc for a in r["accs"][0]),
               f"{name}: p=0 row {r['accs'][0]} != clean quantized {qacc}")
+        r["sweep_walls"] = check_sweep_forms(torch, model, h_te, y_te, 1,
+                                             "hv", r["accs"])
 
     # the LogHD fit again, with TF32 on for the process: the fit must still
     # run every matmul in full float32 and repeat the first fit bit for bit
@@ -1525,6 +1714,91 @@ def update_case(torch, m, c, h, lr: float) -> dict:
         ops=2 * n * b * d + 3 * n * d, op_type="float32")
 
 
+def fc_case(torch, leaves, ps, seeds) -> dict:
+    """flip_corrupt's roles on G points x L leaves: the batched launch
+    (``kernel``; a checkout without ``flip_corrupt_grid``, the parent,
+    makes it the G x L one-point launches), its plain version, the G x L
+    one-point launches (``loop``), and no library call: no PyTorch call
+    computes the counter hash.  Bytes: the codes read once, G float32
+    outputs written; int32 operations: 24 b + 8 a code at a point whose
+    threshold hashes, 8 at p = 0 or 1, where the mask needs no hash."""
+    from repro_torch.kernels import flip_corrupt as fc
+    from repro_torch.kernels.flip_corrupt.ref import flip_threshold
+    grid = getattr(fc, "flip_corrupt_grid", None)
+    grid_ref = getattr(fc, "flip_corrupt_grid_ref", None)
+
+    def loop():
+        return [fc.flip_corrupt(c, s, b, p, row[j])
+                for p, row in zip(ps, seeds)
+                for j, (c, s, b) in enumerate(leaves)]
+
+    def plain_loop():
+        return [fc.flip_corrupt_ref(c, s, p, row[j], bits=b)
+                for p, row in zip(ps, seeds)
+                for j, (c, s, b) in enumerate(leaves)]
+    hashing = sum(0 < flip_threshold(p) < (1 << 24) for p in ps)
+    n = sum(c.numel() for c, _, _ in leaves)
+    return dict(
+        kernel=(lambda: grid(leaves, ps, seeds)) if grid else loop,
+        plain=(lambda: grid_ref(leaves, ps, seeds)) if grid_ref
+        else plain_loop,
+        loop=loop, library=None, batched=grid is not None,
+        bytes=n + 4 * len(ps) * n + 4 * len(leaves),
+        ops=sum(c.numel() * (24 * b * hashing + 8 * len(ps))
+                for c, _, b in leaves),
+        op_type="int32")
+
+
+def fc_launches(fn) -> int:
+    """flip_corrupt's launches in one call of `fn`, as its wrapper counts
+    them."""
+    from repro_torch.kernels import common
+    before = common.launches["flip_corrupt"]
+    fn()
+    return common.launches["flip_corrupt"] - before
+
+
+def fc_sweep_leaves(model, bits: int, scope: str):
+    """The leaves a sweep of `model` at `bits` and `scope` flips, and their
+    columns among the model's seeds."""
+    from repro_torch.core.faults import fault_skip_set
+    from repro_torch.core.quantize import QTensor
+    d = {k: v for k, v in model.quantized(bits).to_dict().items()
+         if k != "enc"}
+    skip = fault_skip_set(scope)
+    cols = [i for i, (k, v) in enumerate(d.items())
+            if k not in skip and isinstance(v, QTensor)]
+    vals = list(d.values())
+    return ([(vals[i].codes, vals[i].scale, vals[i].bits) for i in cols],
+            cols, len(d))
+
+
+def fc_row(torch, rates: dict, name: str, model, bits: int,
+           scope: str) -> dict:
+    """flip_corrupt at one sweep's chunk (6 p x 3 trials) of `model`: the
+    batched launch, its plain version and the chunk's G x L one-point
+    launches (the parent's sweep), as device time, CUDA-event ms a call and
+    span in a CUDA graph, beside the bound."""
+    leaves, cols, n_leaves = fc_sweep_leaves(model, bits, scope)
+    ps, rows = sweep_points(n_leaves)
+    seeds = [[row[i] for i in cols] for row in rows]
+    cs = fc_case(torch, leaves, ps, seeds)
+    shape = [len(ps)] + [list(c.shape) for c, _, _ in leaves]
+    row = shape_row(torch, rates, shape, cs, ("kernel", "plain", "loop"))
+    row.update(name=name, bits=bits, points=len(ps),
+               codes=sum(c.numel() for c, _, _ in leaves) * len(ps),
+               launches=fc_launches(cs["kernel"]),
+               loop_launches=fc_launches(cs["loop"]),
+               span_ms=graph_span_ms(torch, cs["kernel"]),
+               loop_span_ms=graph_span_ms(torch, cs["loop"]),
+               library_ms=None)
+    log(f"time flip_corrupt {name} {bits}-bit G={len(ps)}: "
+        f"{row['launches']} launch(es), span {row['span_ms']:.5f} ms; "
+        f"{row['loop_launches']} one-point launches' span "
+        f"{row['loop_span_ms']:.5f} ms")
+    return row
+
+
 def shape_row(torch, rates: dict, shape, cs: dict, roles) -> dict:
     """Device ms (torch.profiler) of each role of a case at one shape, the
     kernel's CUDA-event ms per call (host included) beside it, and the
@@ -1555,8 +1829,6 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     from repro_torch.core.bundling import symbol_targets
     from repro_torch.hdc.conventional import l2_normalize
     from repro_torch.kernels.bundle_sim import bundle_similarity
-    from repro_torch.kernels.flip_corrupt import (flip_corrupt,
-                                                  flip_corrupt_ref)
     model, h = main["model"], main["h_te"].contiguous()
     m = l2_normalize(model.bundles).contiguous()
     acts = bundle_similarity(h, m)
@@ -1564,7 +1836,6 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     q = model.quantized(4).bundles
     b, d = h.shape
     n, c = m.shape[0], prof.shape[0]
-    nq = q.codes.numel()
     bits = q.bits
     # one Eq. 9 minibatch of the LogHD fit: its bundles, 64 training rows
     # and their activation errors
@@ -1578,13 +1849,8 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
     cases = {
         "bundle_sim": bs_case(torch, h, m),
         "profile_decode": pd_case(torch, acts, prof),
-        "flip_corrupt": dict(
-            kernel=lambda: flip_corrupt(q.codes, q.scale, bits, 0.1, 7),
-            plain=lambda: flip_corrupt_ref(q.codes, q.scale, 0.1, 7,
-                                           bits=bits),
-            library=None,
-            bytes=nq * 1 + nq * 4 + 4, ops=nq * (24 * bits + 8),
-            op_type="int32"),
+        "flip_corrupt": fc_case(torch, [(q.codes, q.scale, bits)], [0.1],
+                                [[7]]),
         "bundle_update": update_case(torch, mu, cu, hu, lr),
     }
     # the encoder of path 1's model on a 64-row service bucket of test rows
@@ -1653,6 +1919,14 @@ def phase_times(torch, main: dict, mm: dict, lm: dict, rates: dict) -> dict:
         pd_rows.append(row)
     out["profile_decode"]["shapes"] = pd_rows
     out["profile_decode"]["chains"] = time_chains(torch, main)
+    # flip_corrupt at the chunks of the sweeps: LogHD "all" at 1 and 4 bits
+    # (bundles and profiles) and conventional "hv" at 1 bit (prototypes),
+    # each 6 p x 3 trials = 18 points with the sweeps' seeds
+    conv = mm["families"]["conventional"]["clf"].model
+    out["flip_corrupt"]["shapes"] = [
+        fc_row(torch, rates, "loghd all", model, 1, "all"),
+        fc_row(torch, rates, "loghd all", model, 4, "all"),
+        fc_row(torch, rates, "conventional hv", conv, 1, "hv")]
     out["loghd_head"] = time_lm_head(torch, lm, rates)
     return out
 
@@ -1716,6 +1990,12 @@ def main() -> int:
     for p, c in bs_batches.items():
         check(c["bucket"] + c["full"] == by_path[p].get("bundle_sim", 0),
               f"{p}: bundle_sim batches {c} do not sum to its launches")
+    # the sweeps' walls (one chunk, and the per-point loop, each twice),
+    # device work and idle share
+    sweeps = {f"loghd_refine_off_{b}bit": w
+              for b, w in main_run["sweep_walls"].items()}
+    sweeps.update({f"matched_memory_{name}_1bit": r["sweep_walls"]
+                   for name, r in mm["families"].items()})
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
@@ -1737,6 +2017,7 @@ def main() -> int:
                 f"full (> {MAX_BATCH} rows)": {
                     p: c["full"] for p, c in bs_batches.items()}}}
                if name == "bundle_sim" else {}),
+            **({"sweeps": sweeps} if name == "flip_corrupt" else {}),
             **({"shapes": t["shapes"]} if "shapes" in t else {}),
             **({"chains": t["chains"]} if "chains" in t else {})})
     print(json.dumps({"kernels": kernels}))

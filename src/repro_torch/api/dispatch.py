@@ -7,9 +7,10 @@ hybrid); the argmax stays in torch.  Everything else (CPU tensors, the cos
 and maha metrics) takes the model's own plain-torch ``predict_encoded``.
 Training: ``fused_bundle_update`` is the minibatch step of the fit engine,
 through ``bundle_update``.  LM head: ``loghd_head_scores`` is the
-decoder LM's LogHD vocab head, through ``loghd_head``.  Corrupt: each
-QTensor leaf goes through ``flip_corrupt`` (the kernel for CUDA tensors,
-its bit-exact plain version for CPU tensors).  PyTorch runs eagerly, so
+decoder LM's LogHD vocab head, through ``loghd_head``.  Corrupt: the
+QTensor leaves of a model at a chunk of grid points go through one
+``flip_corrupt_grid`` call (the kernel for CUDA tensors, its bit-exact
+plain version for CPU tensors).  PyTorch runs eagerly, so
 no compiled-executable cache is needed; ``clear_cache`` still resets
 every cache a later layer registers (the serving layer's bucket
 bookkeeping).
@@ -31,13 +32,14 @@ from repro_torch.kernels import common
 from repro_torch.kernels.bundle_sim.ops import bundle_similarity
 from repro_torch.kernels.bundle_update.ops import bundle_update
 from repro_torch.kernels.bundle_update.ref import bundle_update_ref
-from repro_torch.kernels.flip_corrupt.ops import flip_corrupt
+from repro_torch.kernels.flip_corrupt.ops import flip_corrupt_grid
 from repro_torch.kernels.loghd_head.ops import loghd_head_logits
 from repro_torch.kernels.profile_decode.ops import profile_decode_scores
 from repro_torch.precision import full_f32
 
 __all__ = ["predict_fn", "predict_encoded", "loghd_head_scores",
-           "fused_bundle_update", "corrupt_dequant", "corrupt_materialize",
+           "fused_bundle_update", "corrupt_materialize",
+           "corrupt_materialize_grid",
            "register_cache_clearer", "clear_cache"]
 
 
@@ -128,11 +130,6 @@ def fused_bundle_update(m: torch.Tensor, coeff: torch.Tensor,
     return bundle_update(m, coeff, h, lr)
 
 
-def corrupt_dequant(q: QTensor, p: float, seed: int) -> torch.Tensor:
-    """Fused flip -> sign-extend -> dequantize of one QTensor leaf."""
-    return flip_corrupt(q.codes, q.scale, q.bits, p, seed)
-
-
 def corrupt_materialize(model: HDModel, p: float, seeds: Sequence[int],
                         scope: str = "all") -> HDModel:
     """Corrupt + materialize a model's stored state: the sweep's trial body.
@@ -144,25 +141,54 @@ def corrupt_materialize(model: HDModel, p: float, seeds: Sequence[int],
     leaves go through ``flip_corrupt`` with their seed; float leaves
     (sigma_inv) get IEEE-754 flips from a generator seeded with theirs — a
     different stream from the reference's threefry, which the l2 decode
-    never reads."""
+    never reads.  The one-point call of ``corrupt_materialize_grid``."""
+    return corrupt_materialize_grid(model, [p], [seeds], scope)[0]
+
+
+def corrupt_materialize_grid(model: HDModel, ps: Sequence[float],
+                             seeds: Sequence[Sequence[int]],
+                             scope: str = "all") -> list:
+    """``corrupt_materialize`` at G grid points: the models at (ps[g],
+    seeds[g]) for g < G, with every unprotected QTensor leaf at every point
+    from one ``flip_corrupt_grid`` call (the reference vmaps its trial body
+    over the points of a p-chunk).  Each model's corrupted leaves are views
+    of the call's (G, ...) outputs; protected leaves are dequantized once
+    and shared by all G models; float leaves get their per-point flips as
+    in ``corrupt_materialize``, the same stream for the same seed."""
     skip = fault_skip_set(scope)
     d = {k: v for k, v in model.to_dict().items() if k != "enc"}
-    seeds = list(seeds)
-    if len(seeds) != len(d):
-        raise ValueError(f"{len(seeds)} seeds for {len(d)} leaves {list(d)}")
-    out = {}
-    for seed, (name, leaf) in zip(seeds, d.items()):
-        if name in skip:
-            out[name] = dequantize(leaf) if isinstance(leaf, QTensor) else leaf
-        elif isinstance(leaf, QTensor):
-            out[name] = corrupt_dequant(leaf, p, seed)
-        elif leaf.is_floating_point():
-            gen = torch.Generator(device=leaf.device).manual_seed(int(seed))
-            out[name] = flip_bits_f32(leaf, p, gen)
-        else:
-            out[name] = leaf
-    out["enc"] = model.enc
-    return type(model).from_dict(out, **model.aux())
+    ps, seeds = [float(p) for p in ps], [list(row) for row in seeds]
+    if len(seeds) != len(ps):
+        raise ValueError(f"{len(seeds)} seed rows for {len(ps)} points")
+    for row in seeds:
+        if len(row) != len(d):
+            raise ValueError(f"{len(row)} seeds for {len(d)} leaves {list(d)}")
+    leaves = list(d.values())
+    flipped = [i for i, (name, leaf) in enumerate(d.items())
+               if name not in skip and isinstance(leaf, QTensor)]
+    outs = flip_corrupt_grid(
+        [(leaves[i].codes, leaves[i].scale, leaves[i].bits) for i in flipped],
+        ps, [[row[i] for i in flipped] for row in seeds])
+    corrupted = dict(zip(flipped, outs))
+    shared = {name: dequantize(leaf) if isinstance(leaf, QTensor) else leaf
+              for name, leaf in d.items() if name in skip}
+    models = []
+    for g, (p, row) in enumerate(zip(ps, seeds)):
+        out = {}
+        for i, (name, leaf) in enumerate(d.items()):
+            if i in corrupted:
+                out[name] = corrupted[i][g]
+            elif name in shared:
+                out[name] = shared[name]
+            elif leaf.is_floating_point():
+                gen = torch.Generator(device=leaf.device).manual_seed(
+                    int(row[i]))
+                out[name] = flip_bits_f32(leaf, p, gen)
+            else:
+                out[name] = leaf
+        out["enc"] = model.enc
+        models.append(type(model).from_dict(out, **model.aux()))
+    return models
 
 
 # Layers above this one (``repro_torch.serving``'s bucket caches) register

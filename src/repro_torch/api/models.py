@@ -5,7 +5,8 @@ A model is a frozen dataclass of tensors.  It declares the ``stored_leaves``
 that count against the memory budget and receive bit flips, its
 ``model_bits`` accounting and a plain-torch ``predict_encoded``, and it
 supports the robustness pipeline ``quantized(bits)`` ->
-``corrupted_materialized(p, seeds)`` -> predict.
+``corrupted_materialized(p, seeds)`` -> predict (or, for a sweep's chunk of
+points, ``corrupted_materialized_grid(ps, seeds)``).
 
 ``to_dict``/``from_dict`` flatten a model to its field dict; the order of
 that dict (the reference's field order, e.g. LogHD's bundles, profiles,
@@ -96,6 +97,14 @@ class HDModel:
         CPU.  ``seeds`` holds one int32 seed per ``to_dict()`` leaf."""
         from repro_torch.api.dispatch import corrupt_materialize
         return corrupt_materialize(self, p, seeds, scope)
+
+    def corrupted_materialized_grid(self, ps: Sequence[float],
+                                    seeds: Sequence[Sequence[int]],
+                                    scope: str = "all") -> list:
+        """``corrupted_materialized`` at G points (ps[g], seeds[g]) with
+        one ``flip_corrupt`` launch for all of them: the sweep's chunk."""
+        from repro_torch.api.dispatch import corrupt_materialize_grid
+        return corrupt_materialize_grid(self, ps, seeds, scope)
 
     def sweep_under_flips(self, bits: int, p_grid, h_test, y_test, **kw):
         """(|p_grid|, n_trials) accuracy matrix; see

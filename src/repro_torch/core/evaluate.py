@@ -2,12 +2,14 @@
 predict (paper Sec. IV-A); port of ``repro.core.evaluate``.
 
 ``sweep_under_flips`` fills the (|p_grid|, n_trials) accuracy matrix.  The
-JAX package runs the grid as one jit with vmapped trials; here it is a plain
-loop on the device.  The stored model is quantized once, every trial then
-runs ``corrupted_materialized`` -> predict -> accuracy, and the matrix
-stays on the device until one host copy at the end.  The same trial seeds
-are reused for every p (common random numbers), so curves are comparable
-across p.
+JAX package runs the grid as one jit, scanning p-chunks and vmapping the
+(p, trial) points of a chunk; here the stored model is quantized once,
+each p-chunk's (p, trial) points are corrupted by one batched
+``corrupted_materialized_grid`` call (one ``flip_corrupt`` launch on the
+card), and predict -> accuracy then runs point by point into the device
+matrix, which stays on the device until one host copy at the end.  The
+same trial seeds are reused for every p (common random numbers), so curves
+are comparable across p.
 """
 
 from __future__ import annotations
@@ -30,24 +32,46 @@ def trial_seeds(generator: torch.Generator, n_trials: int,
                          generator=generator).tolist()
 
 
+def pad_p_grid(p_grid: Sequence[float], chunk: int) -> list:
+    """The p-grid cut into chunks of `chunk` values, the last one padded by
+    repeating the final real p (the reference's ``pad_p_grid``: the padded
+    rows are evaluated only where a chunk needs its full shape and are
+    sliced off by the caller).
+
+    >>> pad_p_grid([1.0, 2.0, 3.0], 2)
+    [[1.0, 2.0], [3.0, 3.0]]
+    """
+    p_grid = list(p_grid)
+    n_chunks = -(-len(p_grid) // chunk)
+    padded = p_grid + [p_grid[-1]] * (n_chunks * chunk - len(p_grid))
+    return [padded[c * chunk:(c + 1) * chunk] for c in range(n_chunks)]
+
+
 @full_f32()
 def sweep_under_flips(model, bits: int, p_grid: Sequence[float], h_test,
                       y_test, *, n_trials: int = 3, scope: str = "all",
                       predict_encoded: Optional[Callable] = None,
                       generator: Optional[torch.Generator] = None,
-                      seeds: Optional[Sequence[Sequence[int]]] = None
-                      ) -> np.ndarray:
+                      seeds: Optional[Sequence[Sequence[int]]] = None,
+                      p_chunk: Optional[int] = None) -> np.ndarray:
     """Full (|p_grid|, n_trials) accuracy matrix.
 
     ``predict_encoded`` overrides the family's own ``(model, h) -> labels``
     (pass ``repro_torch.api.dispatch.predict_encoded`` for the kernel
     route).  Trial seeds come from ``seeds`` (n_trials rows of one seed per
     ``to_dict()`` leaf without ``enc``) or are drawn from ``generator``
-    (default: a CPU generator seeded with 0)."""
+    (default: a CPU generator seeded with 0).  ``p_chunk`` has the
+    reference's meaning: the grid runs in chunks of ``max(1, min(p_chunk,
+    |p_grid|))`` p values (default: the whole grid in one chunk), the last
+    padded by repeating the final p; a chunk's chunk x n_trials models are
+    corrupted by one ``flip_corrupt`` launch and held at once, so a smaller
+    chunk bounds that memory.  The padded rows are corrupted with their
+    chunk but not predicted."""
     n_trials = int(n_trials)
     if n_trials < 1:
         raise ValueError("n_trials must be >= 1")
     p_grid = [float(p) for p in p_grid]
+    n_p = len(p_grid)
     if not p_grid:
         return np.zeros((0, n_trials), np.float32)
     pred = (predict_encoded if predict_encoded is not None
@@ -61,13 +85,17 @@ def sweep_under_flips(model, bits: int, p_grid: Sequence[float], h_test,
     seeds = [list(s) for s in seeds]
     if len(seeds) != n_trials:
         raise ValueError(f"{len(seeds)} seed rows for {n_trials} trials")
+    chunk = n_p if p_chunk is None else max(1, min(int(p_chunk), n_p))
     h = torch.as_tensor(h_test)
     y = torch.as_tensor(y_test, device=h.device)
-    accs = torch.empty((len(p_grid), n_trials), device=h.device)
-    for i, p in enumerate(p_grid):
-        for t in range(n_trials):
-            noisy = qmodel.corrupted_materialized(p, seeds[t], scope)
-            accs[i, t] = (pred(noisy, h) == y).float().mean()
+    accs = torch.empty((n_p, n_trials), device=h.device)
+    for c, ps in enumerate(pad_p_grid(p_grid, chunk)):
+        noisy = qmodel.corrupted_materialized_grid(
+            [p for p in ps for _ in range(n_trials)], seeds * len(ps), scope)
+        for k, model_k in enumerate(noisy):
+            i, t = c * chunk + k // n_trials, k % n_trials
+            if i < n_p:
+                accs[i, t] = (pred(model_k, h) == y).float().mean()
     return accs.cpu().numpy()                   # the single host transfer
 
 

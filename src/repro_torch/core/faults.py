@@ -3,7 +3,7 @@ of ``repro.core.faults`` the fault sweep needs.
 
 Every stored bit of the model flips independently with probability p.
 Integer (QTensor) leaves are corrupted by the ``flip_corrupt`` kernel
-(``repro_torch.api.dispatch.corrupt_dequant``); float leaves get IEEE-754
+(``repro_torch.api.dispatch.corrupt_materialize_grid``); float leaves get IEEE-754
 flips here, from a packed 32-plane mask drawn from a ``torch.Generator``.
 The threefry ``flip_bits_int`` path and the fault-model zoo come later.
 """

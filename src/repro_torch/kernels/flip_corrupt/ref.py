@@ -1,6 +1,10 @@
 """Plain PyTorch version of the flip_corrupt kernel, bit-exact with the JAX
 package's oracle ``repro.kernels.flip_corrupt.ref.flip_corrupt_ref``.
 
+``flip_corrupt_grid_ref`` is the batched form, the function the kernel
+computes: every leaf at every grid point, broadcast over the points;
+``flip_corrupt_ref`` is its one-point, one-leaf call.
+
 The counter hash is uint32 arithmetic that wraps mod 2^32.  PyTorch's uint32
 coverage is partial and a product of two 32-bit words does not fit in int64
 (0xFFFFFFFF * 0x9E3779B9 > 2^63), so words are held in int64 and every
@@ -9,6 +13,8 @@ product is taken by the constant's 16-bit halves, each partial product below
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -31,40 +37,54 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def hash_u32(idx: torch.Tensor, seed: int, plane: int) -> torch.Tensor:
-    """Counter-hash word for (element index, seed, bit plane) as int64 in
-    [0, 2^32); `seed` is the int32 seed, reinterpreted as uint32."""
-    add = ((seed & _M32) * 0x85EBCA6B + plane * 0xC2B2AE35) & _M32
-    return mix32(mix32((_mul32(idx, 0x9E3779B9) + add) & _M32))
-
-
 def flip_threshold(p) -> int:
-    """floor(clip(float32(p), 0, 1) * 2^24), computed in float32 as the
-    reference's ``flip_threshold`` does: 0 never flips, 1 always flips."""
-    p32 = np.clip(np.float32(p), np.float32(0.0), np.float32(1.0))
-    return int(np.float32(p32 * np.float32(1 << 24)))
+    """floor(clip(float32(p), 0, 1) * 2^24), as the reference's
+    ``flip_threshold`` computes it in float32: 0 never flips, 1 always
+    flips.  The product by 2^24 is exact in float32, so it is taken on the
+    float32 value in Python."""
+    return int(min(max(float(np.float32(p)), 0.0), 1.0) * float(1 << 24))
+
+
+def flip_corrupt_grid_ref(leaves: Sequence, ps: Sequence,
+                          seeds: Sequence[Sequence[int]]) -> list:
+    """Each leaf corrupted and dequantized at each of G grid points.
+
+    leaves: (codes, scale, bits) triples, codes int8 of any shape with
+    `bits` significant bits, scale a float32 scalar; ps: G flip
+    probabilities; seeds: G rows of one int32 seed per leaf.  Returns one
+    float32 tensor (G, *codes.shape) per leaf, whose row g is the leaf at
+    (ps[g], seeds[g][leaf]).  The hash index of an element is its flat
+    index, which equals the reference's ``row * C + col`` over the
+    ``(-1, C)`` view."""
+    g = len(ps)
+    outs = []
+    for j, (codes, scale, bits) in enumerate(leaves):
+        dev = codes.device
+        thr = torch.tensor([flip_threshold(p) for p in ps], dtype=torch.int64,
+                           device=dev).view(g, 1)
+        key = _mul32(torch.tensor([int(row[j]) & _M32 for row in seeds],
+                                  dtype=torch.int64, device=dev),
+                     0x85EBCA6B).view(g, 1)
+        flat = codes.reshape(1, -1).to(torch.int64)
+        idx = torch.arange(flat.shape[1], dtype=torch.int64, device=dev)
+        base = (_mul32(idx & _M32, 0x9E3779B9).view(1, -1) + key) & _M32
+        mask = torch.zeros_like(base)
+        for b in range(bits):
+            r = mix32(mix32((base + b * 0xC2B2AE35) & _M32))
+            mask = mask | (((r >> 8) < thr).to(torch.int64) << b)
+        x = (flat & ((1 << bits) - 1)) ^ mask
+        if bits == 1:
+            val = (2 * x - 1).to(torch.float32)
+        else:
+            x = torch.where((x & (1 << (bits - 1))) != 0, x - (1 << bits), x)
+            val = x.to(torch.float32)
+        scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+        outs.append((val * scale).reshape(g, *codes.shape))
+    return outs
 
 
 def flip_corrupt_ref(codes: torch.Tensor, scale, p, seed: int, *,
                      bits: int) -> torch.Tensor:
-    """codes (...) int8 -> corrupted, dequantized f32 of the same shape.
-
-    The hash index of an element is its flat index, which equals the
-    reference's ``row * C + col`` over the ``(-1, C)`` view."""
-    shape = codes.shape
-    flat = codes.reshape(-1).to(torch.int64)
-    idx = torch.arange(flat.numel(), dtype=torch.int64,
-                       device=codes.device) & _M32
-    thr = flip_threshold(p)
-    mask = torch.zeros_like(flat)
-    for b in range(bits):
-        flip = (hash_u32(idx, int(seed), b) >> 8) < thr
-        mask = mask | (flip.to(torch.int64) << b)
-    x = (flat & ((1 << bits) - 1)) ^ mask
-    if bits == 1:
-        val = (2 * x - 1).to(torch.float32)
-    else:
-        x = torch.where((x & (1 << (bits - 1))) != 0, x - (1 << bits), x)
-        val = x.to(torch.float32)
-    scale = torch.as_tensor(scale, dtype=torch.float32, device=codes.device)
-    return (val * scale).reshape(shape)
+    """codes (...) int8 -> corrupted, dequantized f32 of the same shape: the
+    one-point, one-leaf call of ``flip_corrupt_grid_ref``."""
+    return flip_corrupt_grid_ref([(codes, scale, bits)], [p], [[seed]])[0][0]

@@ -32,7 +32,10 @@ from repro_torch.kernels.bundle_sim import bundle_similarity
 from repro_torch.kernels.bundle_sim import ops as bs_ops
 from repro_torch.kernels.bundle_update import bundle_update, bundle_update_ref
 from repro_torch.kernels.bundle_update import ops as bu_ops
-from repro_torch.kernels.flip_corrupt import flip_corrupt, flip_corrupt_ref
+from repro_torch.kernels.flip_corrupt import (flip_corrupt, flip_corrupt_grid,
+                                              flip_corrupt_grid_ref,
+                                              flip_corrupt_ref)
+from repro_torch.kernels.flip_corrupt import ops as fc_ops
 from repro_torch.kernels.flip_corrupt.ref import _mul32, flip_threshold
 from repro_torch.kernels.hdc_encode import (hdc_encode, hdc_encode_plain,
                                             hdc_encode_ref)
@@ -157,6 +160,135 @@ def test_flip_corrupt_plain_matches_pallas_interpret(bits, p):
     want = np.asarray(jax_flip_corrupt(jnp.asarray(codes), jnp.float32(0.5),
                                        bits, p, 1234, interpret=True))
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# leaf sets of the batched flip_corrupt: a LogHD-like pair with a ragged
+# profile leaf (260 codes), and ragged leaves (21 codes, 3-D, 1-D)
+FC_LEAF_SETS = {"pair": [(6, 130), (26, 10)],
+                "ragged": [(21,), (3, 5, 37), (1001,)]}
+
+
+def _grid_inputs(shapes, bits, n_points, p, seed=0):
+    rng = np.random.default_rng(seed)
+    leaves = [(torch.from_numpy(_codes(rng, shape, bits)),
+               torch.tensor(np.float32(0.0371 * (j + 1))), bits)
+              for j, shape in enumerate(shapes)]
+    seeds = rng.integers(-(1 << 31), 1 << 31, size=(n_points, len(shapes)))
+    seeds[0, 0] = -(1 << 31)
+    seeds[-1, -1] = (1 << 31) - 1
+    return leaves, [p] * n_points, seeds.tolist()
+
+
+@pytest.mark.parametrize("leaf_set", sorted(FC_LEAF_SETS))
+@pytest.mark.parametrize("n_points", [1, 5, 18])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("p", [0.0, 0.05, 1.0])
+def test_flip_corrupt_grid_plain_equals_single_leaf_calls(leaf_set, n_points,
+                                                          bits, p):
+    """The batched plain version equals G x L one-point, one-leaf calls bit
+    for bit, each point with its own seeds."""
+    leaves, ps, seeds = _grid_inputs(FC_LEAF_SETS[leaf_set], bits, n_points,
+                                     p)
+    got = flip_corrupt_grid_ref(leaves, ps, seeds)
+    assert len(got) == len(leaves)
+    for j, (codes, scale, b) in enumerate(leaves):
+        assert got[j].shape == (n_points, *codes.shape)
+        assert got[j].dtype == torch.float32
+        for g in range(n_points):
+            want = flip_corrupt_ref(codes, scale, ps[g], seeds[g][j], bits=b)
+            assert torch.equal(got[j][g].view(torch.int32),
+                               want.view(torch.int32))
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8])
+def test_flip_corrupt_grid_plain_matches_pallas_interpret(bits):
+    """Each grid point of the batched plain version equals the JAX
+    package's Pallas kernel (interpret mode, counter hash) at its (p,
+    seed)."""
+    leaves, _, seeds = _grid_inputs([(40, 300), (26, 10)], bits, 3, 0.0,
+                                    seed=bits)
+    ps = [0.05, 0.3, 1.0]
+    got = flip_corrupt_grid(leaves, ps, seeds)
+    for j, (codes, scale, b) in enumerate(leaves):
+        for g, p in enumerate(ps):
+            want = np.asarray(jax_flip_corrupt(
+                jnp.asarray(codes.numpy()), jnp.float32(scale.item()), b, p,
+                seeds[g][j], interpret=True, use_pltpu_prng=False))
+            np.testing.assert_array_equal(got[j][g].numpy().view(np.int32),
+                                          want.view(np.int32))
+
+
+def test_flip_corrupt_grid_wrapper_is_plain_on_cpu_and_counts_nothing():
+    leaves, ps, seeds = _grid_inputs(FC_LEAF_SETS["ragged"], 4, 5, 0.1)
+    common.reset_launches()
+    got = flip_corrupt_grid(leaves, ps, seeds)
+    want = flip_corrupt_grid_ref(leaves, ps, seeds)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert flip_corrupt_grid([], ps, [[] for _ in ps]) == []
+    empty = flip_corrupt_grid(leaves, [], [])
+    assert [tuple(e.shape) for e in empty] == [(0, *c.shape)
+                                               for c, _, _ in leaves]
+    assert sum(common.launches.values()) == 0
+
+
+def test_flip_corrupt_grid_argument_checks():
+    leaves, ps, seeds = _grid_inputs([(4, 5), (7,)], 4, 3, 0.1)
+    common.reset_launches()
+    with pytest.raises(ValueError, match="seed rows"):
+        flip_corrupt_grid(leaves, ps, seeds[:2])
+    with pytest.raises(ValueError, match="seeds for 2 leaves"):
+        flip_corrupt_grid(leaves, ps, [row[:1] for row in seeds])
+    for bad in (1 << 31, -(1 << 31) - 1):
+        with pytest.raises(ValueError, match="int32"):
+            flip_corrupt_grid(leaves, ps, [[bad, 0]] * 3)
+    for bits in (0, 9):
+        with pytest.raises(ValueError, match="bits"):
+            flip_corrupt_grid([(leaves[0][0], leaves[0][1], bits)], ps,
+                              [[0]] * 3)
+    with pytest.raises(TypeError, match="int8"):
+        flip_corrupt_grid([(leaves[0][0].to(torch.int32), leaves[0][1], 4)],
+                          ps, [[0]] * 3)
+    with pytest.raises(TypeError, match="contiguous"):
+        flip_corrupt_grid([(leaves[0][0].T, leaves[0][1], 4)], ps, [[0]] * 3)
+    with pytest.raises(ValueError, match="one value"):
+        flip_corrupt_grid([(leaves[0][0], torch.ones(2), 4)], ps, [[0]] * 3)
+    with pytest.raises(ValueError, match="different devices"):
+        flip_corrupt_grid([leaves[0], (torch.zeros(3, dtype=torch.int8,
+                                                   device="meta"),
+                                       torch.tensor(1.0, device="meta"), 4)],
+                          ps, seeds)
+    assert sum(common.launches.values()) == 0
+
+
+@pytest.mark.parametrize("n_leaves,n_points,want", [
+    (1, 1, [(0, 1, 0, 1)]),
+    (2, 18, [(0, 2, 0, 18)]),
+    (4, 128, [(0, 4, 0, 128)]),
+    (5, 3, [(0, 4, 0, 3), (4, 5, 0, 3)]),
+    (3, 130, [(0, 3, 0, 128), (0, 3, 128, 130)]),
+    (9, 257, [(l0, min(l0 + 4, 9), g0, min(g0 + 128, 257))
+              for l0 in (0, 4, 8) for g0 in (0, 128, 256)]),
+    (2, 0, []),
+])
+def test_flip_corrupt_launch_plan(n_leaves, n_points, want):
+    """A call takes one launch while it fits the kernel's parameter struct,
+    and one per block of leaves and points beyond it; every (leaf, point)
+    is covered once."""
+    plan = fc_ops.launch_plan(n_leaves, n_points)
+    assert plan == want
+    cover = collections.Counter((j, g) for l0, l1, g0, g1 in plan
+                                for j in range(l0, l1) for g in range(g0, g1))
+    assert set(cover.values()) <= {1} and len(cover) == n_leaves * n_points
+
+
+def test_flip_corrupt_limits_match_the_kernel_source():
+    src = (_build.CSRC / "flip_corrupt.cu").read_text()
+    assert f"constexpr int kMaxLeaves = {fc_ops.MAX_LEAVES};" in src
+    assert f"constexpr int kMaxPoints = {fc_ops.MAX_POINTS};" in src
+    assert "__grid_constant__ Params" in src
+    # one kernel body, templated on bits
+    assert src.count("__global__") == 1
+    assert "template <int BITS>" in src
 
 
 def test_mul32_wraps_exactly():

@@ -171,10 +171,43 @@ def test_corrupt_materialize_bitwise(ref, scope, p):
                                   np.asarray(want.codebook))
 
 
-def test_sweep_equals_reference_loop(ref):
+@pytest.mark.parametrize("scope", ["all", "hv"])
+@pytest.mark.parametrize("bits", [1, 4])
+def test_corrupt_materialize_grid_equals_single_points(ref, scope, bits):
+    """The grid form gives, point by point, the bits of the one-point
+    ``corrupt_materialize`` (sigma_inv's IEEE-754 flips included), with the
+    protected leaves shared and no launch on the CPU."""
+    port_q = from_reference(_arrays(ref["model"]), device="cpu").quantized(
+        bits)
+    n_leaves = len(port_q.to_dict()) - 1
+    ps = [0.0, 0.05, 0.3, 1.0, 0.05]
+    seeds = [_leaf_seeds(jax.random.PRNGKey(20 + g), n_leaves)
+             for g in range(len(ps))]
+    common.reset_launches()
+    got = port_q.corrupted_materialized_grid(ps, seeds, scope)
+    assert len(got) == len(ps)
+    for g, (p, row) in enumerate(zip(ps, seeds)):
+        want = port_q.corrupted_materialized(p, row, scope)
+        for leaf in ("bundles", "profiles", "sigma_inv", "codebook"):
+            a, b = getattr(got[g], leaf), getattr(want, leaf)
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (g, leaf)
+    if scope == "hv":
+        assert got[0].profiles is got[-1].profiles
+    assert sum(common.launches.values()) == 0
+    with pytest.raises(ValueError, match="seed rows"):
+        port_q.corrupted_materialized_grid(ps, seeds[:2], scope)
+    with pytest.raises(ValueError, match="seeds for"):
+        port_q.corrupted_materialized_grid(ps, [r[:2] for r in seeds], scope)
+
+
+@pytest.mark.parametrize("p_chunk", [None, 1, 2, 4])
+def test_sweep_equals_reference_loop(ref, p_chunk):
     """The port's sweep with the reference's trial seeds gives exactly the
     accuracies of a loop over the reference's kernel-path corruption and
-    ``LogHDModel.predict_encoded``."""
+    ``LogHDModel.predict_encoded``, in one p-chunk or several (p_chunk=2
+    pads the second of its two chunks)."""
     n_trials, bits = 2, 4
     key = jax.random.PRNGKey(5)
     jq = ref["model"].quantized(bits)
@@ -192,12 +225,57 @@ def test_sweep_equals_reference_loop(ref):
     seeds = [_leaf_seeds(subs[t], n_leaves) for t in range(n_trials)]
     got = sweep_under_flips(conv, bits, P_GRID, torch.from_numpy(ref["h_te"].copy()),
                             y, n_trials=n_trials, seeds=seeds,
-                            predict_encoded=dispatch.predict_encoded)
+                            predict_encoded=dispatch.predict_encoded,
+                            p_chunk=p_chunk)
     # equal counts of correct labels: XLA's mean can round count / N one ulp
     # away from the division torch does
     n = len(y)
     np.testing.assert_array_equal(np.rint(got * n), np.rint(want * n))
     assert got[0, 0] == got[0, 1]          # p = 0 is the clean quantized model
+
+
+@pytest.mark.parametrize("n_p,chunk", [(1, 1), (3, 1), (3, 2), (3, 3),
+                                       (6, 4), (7, 3)])
+def test_pad_p_grid_matches_reference(n_p, chunk):
+    from repro.core.evaluate import pad_p_grid as jax_pad_p_grid
+    from repro_torch.core.evaluate import pad_p_grid
+    grid = [0.05 * (i + 1) for i in range(n_p)]
+    want = np.asarray(jax_pad_p_grid(jnp.asarray(grid, jnp.float32), chunk))
+    got = pad_p_grid(grid, chunk)
+    np.testing.assert_array_equal(np.asarray(got, np.float32), want)
+
+
+@pytest.mark.parametrize("p_chunk,n_calls", [(None, 1), (0, 3), (-2, 3),
+                                             (1, 3), (2, 2), (3, 1),
+                                             (100, 1)])
+def test_sweep_p_chunk_normalisation(port_fit, ref, monkeypatch, p_chunk,
+                                     n_calls):
+    """p_chunk has the reference's meaning, max(1, min(p_chunk, |p_grid|))
+    p values a chunk: one batched corruption a chunk, each of chunk x
+    n_trials points, the same accuracy matrix, no launch on the CPU."""
+    from repro_torch.api.models import HDModel
+    calls = []
+    real = HDModel.corrupted_materialized_grid
+
+    def counted(self, ps, seeds, scope="all"):
+        calls.append(len(ps))
+        return real(self, ps, seeds, scope)
+    monkeypatch.setattr(HDModel, "corrupted_materialized_grid", counted)
+    h = torch.from_numpy(ref["h_te"].copy())
+    kw = dict(n_trials=2, predict_encoded=dispatch.predict_encoded)
+    common.reset_launches()
+    got = port_fit.sweep_under_flips(
+        4, P_GRID, h, ref["y_te"], p_chunk=p_chunk,
+        generator=torch.Generator().manual_seed(3), **kw)
+    assert len(calls) == n_calls
+    chunk = len(P_GRID) if p_chunk is None else max(1, min(p_chunk, 3))
+    assert calls == [chunk * 2] * n_calls
+    assert sum(common.launches.values()) == 0
+    calls.clear()
+    want = port_fit.sweep_under_flips(
+        4, P_GRID, h, ref["y_te"],
+        generator=torch.Generator().manual_seed(3), **kw)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_sweep_from_generator_is_reproducible(port_fit, ref):
