@@ -7,7 +7,7 @@ Run from the root of a checkout, with one card visible:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/repro_torch/``, holds each kernel against its plain PyTorch
-version on the card, then runs three classifier paths through the public
+version on the card, then runs four classifier paths through the public
 entry points at the paper's full width, the isolet surrogate (F=617, C=26,
 D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
 
@@ -22,7 +22,13 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    each fitted with every minibatch through ``bundle_update`` (the (n, B,
    D) of each step recorded), predicted, and swept at 1 bit with the
    hypervector scope;
-3. serving: path 1's LogHD model and path 2's conventional model saved
+3. the fault-model zoo on path 2's LogHD and conventional models:
+   ``fault_model="iid"`` against the default 4-bit sweep, a 4-bit
+   hypervector-scope sweep per registered model over its severity grid
+   (``ZOO_GRIDS``, those of ``benchmarks/breakpoint_surface.py``), then
+   the ID-level encoder at full width (16 levels) with a LogHD fit (path
+   2's settings) on its encodings and an iid sweep;
+4. serving: path 1's LogHD model and path 2's conventional model saved
    with ``save_model`` and loaded with ``load_model``, each registered in a
    ``ClassifierService`` at f32 and at int8 residency (max_batch 64, the
    bucket ladder 1, 2, ..., 64), warmed up, then a closed loop over all
@@ -30,7 +36,7 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    through ``hdc_encode``), an open-loop Poisson run of 512 requests at
    half the closed-loop rate, the encoded-input form once, and
    ``serve_forever`` followed by ``shutdown(drain=True)``;
-4. the LM: qwen3-1.7b at full width (28 layers, d_model 2,048, vocab
+5. the LM: qwen3-1.7b at full width (28 layers, d_model 2,048, vocab
    151,936) with the LogHD vocab head (n = 20 bundles), weights drawn on
    the card from a seed: teacher-forced ``decode_step`` against
    ``forward`` over (2, 32) tokens in float32, then ``run_serving`` with
@@ -57,7 +63,14 @@ the fit runs in full float32), that kernel and plain predict and training
 agree, that each sweep's p=0 row equals the clean accuracy of the
 quantized model, that each sweep launches ``flip_corrupt`` once and gives
 the accuracy matrix of the per-point loop and of ``p_chunk=4`` bit for bit
-(their walls and the sweep's device idle share printed beside), that an encoded row has the same bits at B = 1, 64 and
+(their walls and the sweep's device idle share printed beside), that
+``"iid"`` gives the default sweep's matrix bit for bit with one launch,
+that every other zoo model launches ``flip_corrupt`` never and equals its
+per-point loop, that the card's word algebra under masks drawn on the CPU
+equals the CPU's (0 elements differ), that each model's rates on the
+card's generator pass the chi-squared bounds of
+``tests/test_fault_models.py``, that the ID-level sums equal the CPU's
+bit for bit, that an encoded row has the same bits at B = 1, 64 and
 1,559, that served labels equal ``predict`` of the loaded model (of
 its int8 quantization for the int8 residency), that ``loghd_head`` rows
 are bitwise independent of the batch, that the LM's decode matches its
@@ -141,6 +154,21 @@ LH_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 MAX_BATCH = 64
 N_OPEN_LOOP = 512
+# Severity grids of the fault-model zoo, one per registered model, as
+# benchmarks/breakpoint_surface.py sweeps them (drift's are read counts)
+ZOO_GRIDS = {
+    "iid": [0.0, 0.02, 0.05, 0.1, 0.15, 0.2, 0.3],
+    "asymmetric": [0.0, 0.02, 0.05, 0.1, 0.15, 0.2, 0.3],
+    "burst": [0.0, 0.05, 0.1, 0.2, 0.3, 0.5, 0.7],
+    "stuck_at": [0.0, 0.05, 0.1, 0.2, 0.3, 0.4, 0.6],
+    "drift": [0.0, 25.0, 50.0, 100.0, 200.0, 400.0, 800.0],
+}
+ZOO_BITS = 4
+# test rows the ID-level encoding is compared on against the CPU
+ID_ROWS = 256
+# chi-squared with 4 degrees of freedom: P[> 23.5] ~ 1e-4
+# (tests/test_fault_models.py)
+CHI2_DF4 = 23.5
 
 
 def log(*args) -> None:
@@ -774,20 +802,22 @@ def phase_main_path(torch, dev) -> dict:
             "sweep_walls": walls}
 
 
-def per_point_sweep(torch, model, bits: int, h, y, scope: str):
+def per_point_sweep(torch, model, bits: int, h, y, scope: str,
+                    grid=P_GRID, fault_model=None):
     """The sweep as a loop over its (p, trial) points, each corrupted by
-    its own ``corrupted_materialized`` (one one-point ``flip_corrupt``
-    launch per stored int leaf, the parent's sweep), with the sweep's
-    seeds; the (p, trial) accuracy matrix as numpy."""
+    its own ``corrupted_materialized`` (on the iid route one one-point
+    ``flip_corrupt`` launch per stored int leaf, the parent's sweep), with
+    the sweep's seeds; the (p, trial) accuracy matrix as numpy."""
     from repro_torch.api import dispatch
     qmodel = model.quantized(bits)
     n_leaves = len(qmodel.to_dict()) - 1
     _, rows = sweep_points(n_leaves, ps=[0.0])
     y = torch.as_tensor(y, device=h.device)
-    accs = torch.empty((len(P_GRID), N_TRIALS), device=h.device)
-    for i, p in enumerate(P_GRID):
+    accs = torch.empty((len(grid), N_TRIALS), device=h.device)
+    for i, p in enumerate(grid):
         for t in range(N_TRIALS):
-            noisy = qmodel.corrupted_materialized(p, rows[t], scope)
+            noisy = qmodel.corrupted_materialized(p, rows[t], scope,
+                                                  fault_model=fault_model)
             accs[i, t] = (dispatch.predict_encoded(noisy, h) == y).float(
             ).mean()
     return accs.cpu().numpy()
@@ -1052,8 +1082,339 @@ def phase_matched_memory(torch, dev) -> dict:
         f"{len(labels50)} rows differ)")
     check(agree50 >= 0.999, f"refinement kernel vs plain labels agree on "
           f"only {agree50}")
-    return dict(families=out, h_tr=h_tr, y_tr=y_tr_dev,
-                enc_launches=enc_launches)
+    return dict(families=out, h_tr=h_tr, y_tr=y_tr_dev, h_te=h_te,
+                y_te=y_te, enc_launches=enc_launches)
+
+
+class RecordDraw:
+    """A draw that records every mask and gate its inner draw gives."""
+
+    def __init__(self, inner):
+        self.inner, self.drawn = inner, []
+
+    def mask(self, p, shape, nbits):
+        self.drawn.append(self.inner.mask(p, shape, nbits))
+        return self.drawn[-1]
+
+    def bernoulli(self, p, shape):
+        self.drawn.append(self.inner.bernoulli(p, shape))
+        return self.drawn[-1]
+
+
+class ReplayDraw:
+    """A draw that gives back recorded draws in their order."""
+
+    def __init__(self, drawn):
+        self.drawn = list(drawn)
+
+    def mask(self, p, shape, nbits):
+        return self.drawn.pop(0)
+
+    def bernoulli(self, p, shape):
+        return self.drawn.pop(0)
+
+
+def check_word_algebra(torch, dev) -> dict:
+    """Each non-iid model on a (128, 512) 4-bit QTensor and a float32 leaf
+    on the card, with the masks of a CPU generator injected, against the
+    same call on the CPU: the elements that differ (0 required)."""
+    from repro_torch.core.faults import GeneratorDraw
+    from repro_torch.core.quantize import QTensor
+    from repro_torch.faults import available_fault_models, make_fault_model
+    g = torch.Generator().manual_seed(17)
+    codes = torch.randint(-8, 8, (128, 512), generator=g).to(torch.int8)
+    q_cpu = QTensor(codes, torch.tensor(0.25), ZOO_BITS)
+    q_dev = QTensor(codes.to(dev), q_cpu.scale.to(dev), ZOO_BITS)
+    w_cpu = torch.randn((128, 512), generator=g)
+    diffs = {}
+    for name in available_fault_models():
+        if name == "iid":
+            continue
+        fm = make_fault_model(name)
+        sev = ZOO_GRIDS[name][4]
+        rec = RecordDraw(GeneratorDraw.seeded(5, "cpu"))
+        want_q = fm.corrupt_qtensor(q_cpu, sev, rec)
+        want_w = fm.corrupt_f32(w_cpu, sev, rec)
+        replay = ReplayDraw(rec.drawn)
+        got_q = fm.corrupt_qtensor(q_dev, sev, replay)
+        got_w = fm.corrupt_f32(w_cpu.to(dev), sev, replay)
+        check(got_q.codes.device.type == dev.type,
+              f"{name}: the corruption left the card")
+        diffs[name] = (
+            int((got_q.codes.cpu() != want_q.codes).sum())
+            + int((got_w.cpu().view(torch.int32)
+                   != want_w.view(torch.int32)).sum()))
+        changed = int((want_q.codes != codes).sum())
+        log(f"word algebra {name:<10} at severity {sev}: {changed} of "
+            f"{codes.numel()} codes changed; card vs CPU under the same "
+            f"draws: {diffs[name]} elements differ")
+        check(diffs[name] == 0, f"{name}: the card's word algebra differs "
+              f"from the CPU's in {diffs[name]} elements")
+    return diffs
+
+
+def check_card_rates(torch, dev) -> dict:
+    """Each model's marginal rates on the card's own generator against the
+    closed forms, with the chi-squared bounds of
+    tests/test_fault_models.py."""
+    from repro_torch.core.quantize import quantize
+    from repro_torch.faults import (AsymmetricFlip, BurstFlip, DriftFlip,
+                                    IIDFlip, StuckAt)
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def codes(shape):
+        return quantize(torch.randn(shape, generator=g, device=dev), 4)
+
+    def words(q):
+        return q.codes.to(torch.int64) & 0xF
+
+    def plane(x, b):
+        return (x >> b) & 1
+
+    def chi2(k, n, p):
+        return (k - n * p) ** 2 / (n * p * (1 - p) + 1e-12)
+
+    stats = {}
+    q = codes((128, 512))
+    u0 = words(q)
+    n = u0.numel()
+    # iid
+    x = u0 ^ words(IIDFlip().corrupt_qtensor(q, 0.25, 6))
+    stats["iid_chi2"] = sum(chi2(int(plane(x, b).sum()), n, 0.25)
+                            for b in range(4))
+    # asymmetric: 0->1 and 1->0 separately
+    fm = AsymmetricFlip(p01_scale=0.25, p10_scale=1.0)
+    u1 = words(fm.corrupt_qtensor(q, 0.2, 3))
+    c01 = c10 = 0.0
+    for b in range(4):
+        s, r = plane(u0, b), plane(u1, b)
+        c01 += chi2(int(((s == 0) & (r == 1)).sum()), int((s == 0).sum()),
+                    0.05)
+        c10 += chi2(int(((s == 1) & (r == 0)).sum()), int((s == 1).sum()),
+                    0.2)
+    stats.update(asym01_chi2=c01, asym10_chi2=c10)
+    # burst: marginal per plane, hit rows, within-row damage, overdispersion
+    fm, sev, row = BurstFlip(row_size=128, burst_rate=0.5), 0.3, 128
+    qb = codes((256, 512))
+    xb = (words(qb) ^ words(fm.corrupt_qtensor(qb, sev, 8))).reshape(-1)
+    stats["burst_plane_dev"] = max(
+        abs(int(plane(xb, b).sum()) / xb.numel() - sev * 0.5)
+        for b in range(4))
+    per_row = sum(plane(xb, b) for b in range(4)).reshape(-1, row).sum(1)
+    hit = per_row > 0
+    nrows = per_row.numel()
+    stats["burst_hit_z"] = abs(float(hit.float().mean()) - sev) / (
+        (sev * (1 - sev) / nrows) ** 0.5)
+    stats["burst_row_damage"] = float(per_row[hit].float().mean()) / (
+        0.5 * row * 4)
+    iid_var = row * 4 * 0.15 * 0.85
+    stats["burst_overdispersion"] = float(per_row.float().var()) / iid_var
+    # stuck-at: rate, persistence and idempotence under one seed
+    fm, sev = StuckAt(stuck0_frac=0.5), 0.2
+    fq = fm.corrupt_qtensor(q, sev, 13)
+    u1 = words(fq)
+    p0, p1 = sev * 0.5, sev * 0.5 * (1 - sev * 0.5)
+    c = 0.0
+    for b in range(4):
+        s = plane(u0, b)
+        n1, n0 = int(s.sum()), int((1 - s).sum())
+        expect, var = n1 * p0 + n0 * p1, (n1 * p0 * (1 - p0)
+                                          + n0 * p1 * (1 - p1))
+        c += (int(plane(u0 ^ u1, b).sum()) - expect) ** 2 / (var + 1e-12)
+    stats["stuck_chi2"] = c
+    stats["stuck_persistent"] = torch.equal(
+        fm.corrupt_qtensor(q, sev, 13).codes, fq.codes)
+    stats["stuck_idempotent"] = torch.equal(
+        fm.corrupt_qtensor(fq, sev, 13).codes, fq.codes)
+    # drift: identity at 0 reads, the rate at 200 reads against p_eff
+    fm = DriftFlip(per_read_p=0.002)
+    stats["drift_identity"] = torch.equal(
+        fm.corrupt_qtensor(q, 0.0, 21).codes, q.codes)
+    p = fm.p_eff(200.0)
+    x = u0 ^ words(fm.corrupt_qtensor(q, 200.0, 21))
+    stats["drift_chi2"] = sum(chi2(int(plane(x, b).sum()), n, p)
+                              for b in range(4))
+    stats["drift_p_eff_200"] = p
+    log("fault rates on the card's generator: " + ", ".join(
+        f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in stats.items()))
+    for k in ("iid_chi2", "asym01_chi2", "asym10_chi2", "stuck_chi2",
+              "drift_chi2"):
+        check(stats[k] < CHI2_DF4, f"{k} = {stats[k]} >= {CHI2_DF4}")
+    check(stats["burst_plane_dev"] < 0.03, "burst: a plane's rate is off "
+          f"the marginal by {stats['burst_plane_dev']}")
+    check(stats["burst_hit_z"] < 4, f"burst: hit rows {stats['burst_hit_z']}"
+          f" sigma off the severity")
+    check(stats["burst_row_damage"] > 0.8, "burst: hit rows carry "
+          f"{stats['burst_row_damage']} of burst_rate's damage")
+    check(stats["burst_overdispersion"] > 10, "burst: per-row damage "
+          f"variance only {stats['burst_overdispersion']} x the iid one")
+    for k in ("stuck_persistent", "stuck_idempotent", "drift_identity"):
+        check(stats[k], f"{k} is false")
+    return stats
+
+
+def phase_fault_zoo(torch, dev, mm: dict) -> dict:
+    """The fault-model zoo on the matched-memory phase's LogHD and
+    conventional models, then the ID-level encoder: "iid" against the
+    default sweep (one flip_corrupt launch each), a 4-bit "hv" sweep per
+    registered model and family over its severity grid, the ID-level
+    encoding of the isolet surrogate, a LogHD fit on it and its iid sweep;
+    launch counting over all of it; then the checks (each sweep against its
+    per-point loop, the word algebra under injected draws, the rates on the
+    card's generator, the encodings against the CPU)."""
+    import numpy as np
+    from repro_torch.api import dispatch, make_classifier
+    from repro_torch.data.synth import load_dataset
+    from repro_torch.faults import available_fault_models
+    from repro_torch.hdc.encoders import EncoderConfig
+    from repro_torch.hdc.id_level import (IDLevelConfig, encode_id_level,
+                                          id_level_sums, init_id_level)
+    from repro_torch.kernels import common
+
+    models = {name: mm["families"][name]["clf"].model
+              for name in ("loghd", "conventional")}
+    h_te, y_te = mm["h_te"], mm["y_te"]
+    y_dev = torch.as_tensor(y_te, device=dev)
+    x_tr, y_tr, x_te, _, spec = load_dataset("isolet")
+    loghd_kw = budget_families(spec)["loghd"][0]
+
+    def sweep(model, h, bits, grid, scope, fault_model):
+        torch.cuda.synchronize()
+        before = common.launches["flip_corrupt"]
+        t0 = time.perf_counter()
+        accs = model.sweep_under_flips(
+            bits, grid, h, y_te, n_trials=N_TRIALS, scope=scope,
+            predict_encoded=dispatch.predict_encoded,
+            generator=torch.Generator().manual_seed(0),
+            fault_model=fault_model)
+        torch.cuda.synchronize()
+        return dict(accs=accs, wall_s=time.perf_counter() - t0,
+                    flips=common.launches["flip_corrupt"] - before)
+
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t_phase = time.perf_counter()
+    iid_check = {fm: sweep(models["loghd"], h_te, ZOO_BITS, P_GRID, "all",
+                           fm) for fm in (None, "iid")}
+    zoo = {(fname, fam): sweep(model, h_te, ZOO_BITS, ZOO_GRIDS[fname],
+                               "hv", fname)
+           for fname in available_fault_models()
+           for fam, model in models.items()}
+    cfg = IDLevelConfig(spec.n_features, 10_000, levels=16)
+    t0 = time.perf_counter()
+    params = init_id_level(cfg, device=dev)
+    hid_tr = encode_id_level(params, x_tr, cfg)
+    hid_te = encode_id_level(params, x_te, cfg)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clf = make_classifier("loghd", spec.n_classes,
+                          enc_cfg=EncoderConfig(spec.n_features, 10_000),
+                          **loghd_kw).fit(x_tr, y_tr, enc=params,
+                                          encoded=hid_tr)
+    id_labels = clf.predict_encoded(hid_te)
+    torch.cuda.synchronize()
+    id_fit_s = time.perf_counter() - t0
+    id_sweep = sweep(clf.model, hid_te, ZOO_BITS, P_GRID, "all", "iid")
+    phase_s = time.perf_counter() - t_phase
+    launches = dict(common.launches)
+    batches = bundle_sim_batches()
+    log(f"fault zoo path: {phase_s:.3f} s; launches {launches}; "
+        f"bundle_sim {batches}")
+
+    # checks, after the counts were read
+    want_flips = 2 + len(models) + 1
+    check(launches.get("flip_corrupt", 0) == want_flips,
+          f"fault zoo: flip_corrupt launched "
+          f"{launches.get('flip_corrupt', 0)} times, not {want_flips}")
+    for name in ("bundle_sim", "profile_decode", "bundle_update"):
+        check(launches.get(name, 0) > 0, f"fault zoo: {name} never launched")
+    a, b = iid_check[None], iid_check["iid"]
+    check(np.array_equal(a["accs"], b["accs"]),
+          f"fault_model='iid' differs from the default sweep: "
+          f"{a['accs'].tolist()} against {b['accs'].tolist()}")
+    check(a["flips"] == 1 and b["flips"] == 1,
+          f"flip_corrupt launches: default {a['flips']}, iid {b['flips']}, "
+          f"not 1 each")
+    log(f"iid against the default sweep (LogHD, {ZOO_BITS}-bit, scope all, "
+        f"{len(P_GRID)} p x {N_TRIALS} trials): bitwise equal, 1 launch each;"
+        f" walls {a['wall_s']:.4f} / {b['wall_s']:.4f} s")
+
+    clean = {fam: float((dispatch.predict_encoded(
+        m.quantized(ZOO_BITS), h_te) == y_dev).float().mean())
+        for fam, m in models.items()}
+    per_model = {}
+    for (fname, fam), r in zoo.items():
+        model, grid = models[fam], ZOO_GRIDS[fname]
+        accs = r["accs"]
+        check(accs.shape == (len(grid), N_TRIALS),
+              f"{fname} {fam}: sweep shape {accs.shape}")
+        check(all(v == clean[fam] for v in accs[0]),
+              f"{fname} {fam}: severity-0 row {accs[0]} != clean quantized "
+              f"{clean[fam]}")
+        want = 1 if fname == "iid" else 0
+        check(r["flips"] == want, f"{fname} {fam}: flip_corrupt launched "
+              f"{r['flips']} times, not {want}")
+        loop = per_point_sweep(torch, model, ZOO_BITS, h_te, y_te, "hv",
+                               grid=grid, fault_model=fname)
+        check(np.array_equal(loop, accs), f"{fname} {fam}: the sweep "
+              f"differs from its per-point loop")
+        again = sweep(model, h_te, ZOO_BITS, grid, "hv", fname)
+        busy, count, _ = profile_calls(
+            torch, lambda: sweep(model, h_te, ZOO_BITS, grid, "hv", fname),
+            calls=1)
+        wall = min(r["wall_s"], again["wall_s"])
+        r.update(again_s=again["wall_s"], device_ms=busy, events=count,
+                 idle=1.0 - busy / 1e3 / wall)
+        per_model.setdefault(fname, {})[fam] = r
+    for fname, fams in per_model.items():
+        log(f"{fname} ({ZOO_BITS}-bit, scope hv, mean of {N_TRIALS} trials;"
+            f" equal to its per-point loop): severity | loghd | "
+            f"conventional")
+        for i, s in enumerate(ZOO_GRIDS[fname]):
+            log(f"  {s:<7} {fams['loghd']['accs'][i].mean():.4f}  "
+                f"{fams['conventional']['accs'][i].mean():.4f}")
+        for fam, r in fams.items():
+            log(f"  {fam}: wall {r['wall_s']:.4f} / {r['again_s']:.4f} s, "
+                f"device {r['device_ms']:.3f} ms in {r['events']:.0f} "
+                f"kernels and copies, idle {r['idle']:.4f}")
+
+    diffs = check_word_algebra(torch, dev)
+    rates = check_card_rates(torch, dev)
+
+    # the ID-level encoding against the CPU on the first ID_ROWS test rows
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    rows = x_te[:ID_ROWS]
+    sums_dev = id_level_sums(params, rows, cfg).cpu()
+    sums_cpu = id_level_sums(cpu_params, rows, cfg)
+    n_sum_diff = int((sums_dev != sums_cpu).sum())
+    enc_err = max_err(hid_te[:ID_ROWS].cpu(),
+                      encode_id_level(cpu_params, rows, cfg))
+    id_acc = float((id_labels == y_dev).float().mean())
+    log(f"ID-level encoder (F={spec.n_features}, D={cfg.dim}, levels "
+        f"{cfg.levels}): {len(x_tr) + len(x_te)} rows encoded in "
+        f"{encode_s:.4f} s (params drawn on the card included); sums vs the "
+        f"CPU over {ID_ROWS} rows: {n_sum_diff} differ; normalised rows max "
+        f"abs diff {enc_err:.3e}; LogHD fit {id_fit_s:.3f} s, accuracy "
+        f"{id_acc:.4f}; iid sweep ({ZOO_BITS}-bit, scope all, mean of "
+        f"trials): " + ", ".join(
+            f"p={p} {v:.4f}" for p, v in zip(P_GRID,
+                                              id_sweep["accs"].mean(1))))
+    check(n_sum_diff == 0, f"ID-level sums differ from the CPU's in "
+          f"{n_sum_diff} elements")
+    check(enc_err <= 1e-6, f"ID-level rows differ from the CPU's by "
+          f"{enc_err}")
+    check(id_acc > 0.5, f"ID-level LogHD accuracy {id_acc} is below 0.5")
+    check(id_sweep["flips"] == 1, f"ID-level sweep launched flip_corrupt "
+          f"{id_sweep['flips']} times, not once")
+    return {"launches": launches, "bs_batches": batches,
+            "phase_s": phase_s, "curves": {
+                f"{fname}_{fam}": r["accs"].mean(1).tolist()
+                for fname, fams in per_model.items()
+                for fam, r in fams.items()},
+            "word_diffs": diffs, "rates": rates, "encode_s": encode_s,
+            "id_acc": id_acc}
 
 
 def served_labels(svc, name: str, rows, encoded: bool = False):
@@ -1962,6 +2323,9 @@ def main() -> int:
     errs["loghd_head"] = phase_lm_kernel(torch, dev)
     main_run = phase_main_path(torch, dev)
     mm = phase_matched_memory(torch, dev)
+    t0 = time.perf_counter()
+    zoo = phase_fault_zoo(torch, dev, mm)
+    log(f"fault zoo phase, checks included: {time.perf_counter() - t0:.2f} s")
     serve = phase_serving(torch, dev, main_run, mm)
     phase_fit_profile(torch, mm)
     lm = phase_lm(torch, dev)
@@ -1975,6 +2339,7 @@ def main() -> int:
                "matched_memory_encoder": mm["enc_launches"]}
     by_path.update({f"matched_memory_{name}": r["launches"]
                     for name, r in mm["families"].items()})
+    by_path["fault_zoo"] = zoo["launches"]
     by_path["serve"] = serve["launches"]
     by_path.update({f"lm_serve_{head}": lm[head]["launches"]
                     for head in ("loghd", "dense")})
@@ -1985,6 +2350,7 @@ def main() -> int:
                   "matched_memory_encoder": none}
     bs_batches.update({f"matched_memory_{name}": r["bs_batches"]
                        for name, r in mm["families"].items()})
+    bs_batches["fault_zoo"] = zoo["bs_batches"]
     bs_batches["serve"] = serve["bs_batches"]
     bs_batches.update({f"lm_serve_{head}": none for head in ("loghd", "dense")})
     for p, c in bs_batches.items():

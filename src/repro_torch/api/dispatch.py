@@ -10,22 +10,25 @@ through ``bundle_update``.  LM head: ``loghd_head_scores`` is the
 decoder LM's LogHD vocab head, through ``loghd_head``.  Corrupt: the
 QTensor leaves of a model at a chunk of grid points go through one
 ``flip_corrupt_grid`` call (the kernel for CUDA tensors, its bit-exact
-plain version for CPU tensors).  PyTorch runs eagerly, so
-no compiled-executable cache is needed; ``clear_cache`` still resets
-every cache a later layer registers (the serving layer's bucket
-bookkeeping).
+plain version for CPU tensors), under the default iid model; the other
+models of ``repro_torch.faults`` run in torch ops on the model's device.
+PyTorch runs eagerly, so no compiled-executable cache is needed;
+``clear_cache`` still resets every cache a later layer registers (the
+serving layer's bucket bookkeeping).
 """
 
 from __future__ import annotations
 
 import functools
+import numbers
 from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.api.models import (ConventionalModel, HDModel, HybridModel,
                                     LogHDModel, SparseHDModel)
-from repro_torch.core.faults import fault_skip_set, flip_bits_f32
+from repro_torch.core.faults import (GeneratorDraw, fault_skip_set,
+                                     flip_bits_f32)
 from repro_torch.core.quantize import QTensor, dequantize
 from repro_torch.hdc.conventional import l2_normalize
 from repro_torch.kernels import common
@@ -130,31 +133,41 @@ def fused_bundle_update(m: torch.Tensor, coeff: torch.Tensor,
     return bundle_update(m, coeff, h, lr)
 
 
-def corrupt_materialize(model: HDModel, p: float, seeds: Sequence[int],
-                        scope: str = "all") -> HDModel:
+def corrupt_materialize(model: HDModel, p: float, seeds: Sequence,
+                        scope: str = "all", fault_model=None) -> HDModel:
     """Corrupt + materialize a model's stored state: the sweep's trial body.
 
-    ``seeds`` holds one int32 seed per leaf of ``model.to_dict()`` without
+    ``seeds`` holds one seed per leaf of ``model.to_dict()`` without
     ``enc``, in that order (LogHD: bundles, profiles, codebook, sigma_inv;
-    SparseHD: protos, keep), as the reference splits one key per leaf.
-    Protected leaves keep their slot and are only dequantized.  QTensor
-    leaves go through ``flip_corrupt`` with their seed; float leaves
-    (sigma_inv) get IEEE-754 flips from a generator seeded with theirs — a
-    different stream from the reference's threefry, which the l2 decode
-    never reads.  The one-point call of ``corrupt_materialize_grid``."""
-    return corrupt_materialize_grid(model, [p], [seeds], scope)[0]
+    SparseHD: protos, keep).  Protected leaves keep their slot and are only
+    dequantized.  ``fault_model=None`` and kernel-eligible models (iid):
+    int seeds; QTensor leaves go through ``flip_corrupt`` with their seed;
+    float leaves (sigma_inv) get IEEE-754 flips from a generator seeded
+    with theirs — a different stream from the reference's threefry, which
+    the l2 decode never reads.  Any other fault model (a name or a
+    ``FaultModel``, `p` its severity) corrupts the leaves in torch ops on
+    the model's device, each seed an int, a ``torch.Generator`` or a draw,
+    then dequantizes them (the reference's jnp route).  The one-point call
+    of ``corrupt_materialize_grid``."""
+    return corrupt_materialize_grid(model, [p], [seeds], scope,
+                                    fault_model=fault_model)[0]
 
 
 def corrupt_materialize_grid(model: HDModel, ps: Sequence[float],
-                             seeds: Sequence[Sequence[int]],
-                             scope: str = "all") -> list:
+                             seeds: Sequence[Sequence],
+                             scope: str = "all",
+                             fault_model=None) -> list:
     """``corrupt_materialize`` at G grid points: the models at (ps[g],
-    seeds[g]) for g < G, with every unprotected QTensor leaf at every point
+    seeds[g]) for g < G.  On the kernel route (``fault_model`` None or
+    kernel eligible) every unprotected QTensor leaf at every point comes
     from one ``flip_corrupt_grid`` call (the reference vmaps its trial body
     over the points of a p-chunk).  Each model's corrupted leaves are views
     of the call's (G, ...) outputs; protected leaves are dequantized once
     and shared by all G models; float leaves get their per-point flips as
-    in ``corrupt_materialize``, the same stream for the same seed."""
+    in ``corrupt_materialize``, the same stream for the same seed.  Other
+    fault models corrupt the points one after another."""
+    from repro_torch.core.evaluate import resolve_fault_model
+    fault_model = resolve_fault_model(fault_model)
     skip = fault_skip_set(scope)
     d = {k: v for k, v in model.to_dict().items() if k != "enc"}
     ps, seeds = [float(p) for p in ps], [list(row) for row in seeds]
@@ -163,6 +176,17 @@ def corrupt_materialize_grid(model: HDModel, ps: Sequence[float],
     for row in seeds:
         if len(row) != len(d):
             raise ValueError(f"{len(row)} seeds for {len(d)} leaves {list(d)}")
+
+    def build(out: dict) -> HDModel:
+        return type(model).from_dict({**out, "enc": model.enc},
+                                     **model.aux())
+
+    if fault_model is not None and not fault_model.kernel_eligible:
+        return [build(fault_model.corrupt(d, p, row, skip=skip)).materialized()
+                for p, row in zip(ps, seeds)]
+    if not all(isinstance(s, numbers.Integral) for row in seeds for s in row):
+        raise TypeError("the flip_corrupt route takes int seeds; draws go "
+                        "through HDModel.corrupted")
     leaves = list(d.values())
     flipped = [i for i, (name, leaf) in enumerate(d.items())
                if name not in skip and isinstance(leaf, QTensor)]
@@ -181,13 +205,11 @@ def corrupt_materialize_grid(model: HDModel, ps: Sequence[float],
             elif name in shared:
                 out[name] = shared[name]
             elif leaf.is_floating_point():
-                gen = torch.Generator(device=leaf.device).manual_seed(
-                    int(row[i]))
-                out[name] = flip_bits_f32(leaf, p, gen)
+                out[name] = flip_bits_f32(
+                    leaf, p, GeneratorDraw.seeded(row[i], leaf.device))
             else:
                 out[name] = leaf
-        out["enc"] = model.enc
-        models.append(type(model).from_dict(out, **model.aux()))
+        models.append(build(out))
     return models
 
 

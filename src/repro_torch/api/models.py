@@ -6,7 +6,9 @@ that count against the memory budget and receive bit flips, its
 ``model_bits`` accounting and a plain-torch ``predict_encoded``, and it
 supports the robustness pipeline ``quantized(bits)`` ->
 ``corrupted_materialized(p, seeds)`` -> predict (or, for a sweep's chunk of
-points, ``corrupted_materialized_grid(ps, seeds)``).
+points, ``corrupted_materialized_grid(ps, seeds)``), each taking a
+``fault_model=`` of ``repro_torch.faults``; ``corrupted(p, seeds)`` keeps
+the corrupted codes quantized.
 
 ``to_dict``/``from_dict`` flatten a model to its field dict; the order of
 that dict (the reference's field order, e.g. LogHD's bundles, profiles,
@@ -90,25 +92,56 @@ class HDModel:
                    if isinstance(getattr(self, name), QTensor)}
         return self.replace(**updates) if updates else self
 
-    def corrupted_materialized(self, p: float, seeds: Sequence[int],
-                               scope: str = "all") -> "HDModel":
+    def corrupted(self, p: float, seeds: Sequence, scope: str = "all",
+                  fault_model=None) -> "HDModel":
+        """The model with bits of its stored int codes and float leaves
+        corrupted, still quantized.  ``seeds`` holds one seed per
+        ``to_dict()`` leaf without ``enc`` (an int, a ``torch.Generator``
+        or a draw, ``core.faults.as_draw``).  ``fault_model=None`` is iid
+        flips at rate `p` (``core.faults.corrupt_model``), a registered name
+        or ``FaultModel`` that model at severity `p`; every draw comes from
+        torch generators on the model's device, not from the
+        ``flip_corrupt`` counter hash of ``corrupted_materialized``."""
+        from repro_torch.core.evaluate import resolve_fault_model
+        from repro_torch.core.faults import corrupt_model, fault_skip_set
+        fault_model = resolve_fault_model(fault_model)
+        d = self.to_dict()
+        if fault_model is None:
+            out = corrupt_model(d, p, seeds, scope)
+        else:
+            out = fault_model.corrupt(
+                {k: v for k, v in d.items() if k != "enc"}, p, seeds,
+                skip=fault_skip_set(scope))
+            out["enc"] = self.enc
+        return type(self).from_dict(out, **self.aux())
+
+    def corrupted_materialized(self, p: float, seeds: Sequence,
+                               scope: str = "all",
+                               fault_model=None) -> "HDModel":
         """Corrupt + dequantize in one step — the fault-sweep trial body:
         the ``flip_corrupt`` kernel on the card, its plain version on the
-        CPU.  ``seeds`` holds one int32 seed per ``to_dict()`` leaf."""
+        CPU, for the default and ``"iid"``; another ``fault_model`` runs in
+        torch ops on the model's device (``dispatch.corrupt_materialize``).
+        ``seeds`` holds one seed per ``to_dict()`` leaf."""
         from repro_torch.api.dispatch import corrupt_materialize
-        return corrupt_materialize(self, p, seeds, scope)
+        return corrupt_materialize(self, p, seeds, scope,
+                                   fault_model=fault_model)
 
     def corrupted_materialized_grid(self, ps: Sequence[float],
-                                    seeds: Sequence[Sequence[int]],
-                                    scope: str = "all") -> list:
-        """``corrupted_materialized`` at G points (ps[g], seeds[g]) with
-        one ``flip_corrupt`` launch for all of them: the sweep's chunk."""
+                                    seeds: Sequence[Sequence],
+                                    scope: str = "all",
+                                    fault_model=None) -> list:
+        """``corrupted_materialized`` at G points (ps[g], seeds[g]): one
+        ``flip_corrupt`` launch for all of them on the kernel route, the
+        sweep's chunk."""
         from repro_torch.api.dispatch import corrupt_materialize_grid
-        return corrupt_materialize_grid(self, ps, seeds, scope)
+        return corrupt_materialize_grid(self, ps, seeds, scope,
+                                        fault_model=fault_model)
 
     def sweep_under_flips(self, bits: int, p_grid, h_test, y_test, **kw):
         """(|p_grid|, n_trials) accuracy matrix; see
-        ``repro_torch.core.evaluate.sweep_under_flips``."""
+        ``repro_torch.core.evaluate.sweep_under_flips`` (``fault_model=``
+        reads ``p_grid`` as that model's severity grid)."""
         from repro_torch.core.evaluate import sweep_under_flips
         return sweep_under_flips(self, bits, p_grid, h_test, y_test, **kw)
 

@@ -6,6 +6,8 @@
     clf = clf.fit(x_train, y_train)              # bundle_update steps
     labels = clf.predict(x_test)                 # encode + kernel predict
     accs = clf.sweep_under_flips(4, [0.0, 0.1], h_test, y_test)
+    burst = clf.sweep_under_flips(4, [0.0, 0.2], h_test, y_test,
+                                  fault_model="burst")
 """
 
 from __future__ import annotations
@@ -113,11 +115,23 @@ class HDClassifier:
     def quantized(self, bits: int) -> "HDClassifier":
         return self.with_model(self._require_model().quantized(bits))
 
-    def sweep_under_flips(self, bits: int, p_grid, h_test, y_test, **kw):
+    def corrupted(self, p: float, seeds, scope: str = "all",
+                  fault_model=None) -> "HDClassifier":
+        """``HDModel.corrupted``: one seed per stored leaf."""
+        return self.with_model(self._require_model().corrupted(
+            p, seeds, scope, fault_model=fault_model))
+
+    def materialized(self) -> "HDClassifier":
+        return self.with_model(self._require_model().materialized())
+
+    def sweep_under_flips(self, bits: int, p_grid, h_test, y_test, *,
+                          fault_model=None, **kw):
         """(|p_grid|, n_trials) accuracy matrix; keywords as
-        ``repro_torch.core.evaluate.sweep_under_flips``."""
-        return self._require_model().sweep_under_flips(bits, p_grid, h_test,
-                                                       y_test, **kw)
+        ``repro_torch.core.evaluate.sweep_under_flips``.  ``fault_model``
+        names a registered ``repro_torch.faults`` model (or passes an
+        instance); ``p_grid`` is then its severity grid."""
+        return self._require_model().sweep_under_flips(
+            bits, p_grid, h_test, y_test, fault_model=fault_model, **kw)
 
     def model_bits(self, bits: int) -> int:
         return self._require_model().model_bits(bits)

@@ -10,6 +10,12 @@ card), and predict -> accuracy then runs point by point into the device
 matrix, which stays on the device until one host copy at the end.  The
 same trial seeds are reused for every p (common random numbers), so curves
 are comparable across p.
+
+``fault_model=`` selects a device-noise model of ``repro_torch.faults``;
+``p_grid`` is then its severity grid.  ``None`` and ``"iid"`` take the
+``flip_corrupt`` route above; every other model corrupts each point in
+torch ops on the model's device (one point after another: the reference
+vmaps them), from the same trial seeds at every severity.
 """
 
 from __future__ import annotations
@@ -30,6 +36,15 @@ def trial_seeds(generator: torch.Generator, n_trials: int,
     drawn like the reference's per-leaf ``randint(key, (), 0, INT32_MAX)``."""
     return torch.randint(0, INT32_MAX, (n_trials, n_leaves),
                          generator=generator).tolist()
+
+
+def resolve_fault_model(fault_model):
+    """None stays None (the default iid route), a name goes through the
+    ``repro_torch.faults`` registry, and a ``FaultModel`` passes through."""
+    if fault_model is None or not isinstance(fault_model, str):
+        return fault_model
+    from repro_torch.faults import make_fault_model
+    return make_fault_model(fault_model)
 
 
 def pad_p_grid(p_grid: Sequence[float], chunk: int) -> list:
@@ -53,7 +68,8 @@ def sweep_under_flips(model, bits: int, p_grid: Sequence[float], h_test,
                       predict_encoded: Optional[Callable] = None,
                       generator: Optional[torch.Generator] = None,
                       seeds: Optional[Sequence[Sequence[int]]] = None,
-                      p_chunk: Optional[int] = None) -> np.ndarray:
+                      p_chunk: Optional[int] = None,
+                      fault_model=None) -> np.ndarray:
     """Full (|p_grid|, n_trials) accuracy matrix.
 
     ``predict_encoded`` overrides the family's own ``(model, h) -> labels``
@@ -66,7 +82,10 @@ def sweep_under_flips(model, bits: int, p_grid: Sequence[float], h_test,
     padded by repeating the final p; a chunk's chunk x n_trials models are
     corrupted by one ``flip_corrupt`` launch and held at once, so a smaller
     chunk bounds that memory.  The padded rows are corrupted with their
-    chunk but not predicted."""
+    chunk but not predicted.  ``fault_model`` (a registered name or a
+    ``FaultModel``) reads ``p_grid`` as its severity grid; the default and
+    ``"iid"`` make one ``flip_corrupt`` launch a chunk, the other models
+    none."""
     n_trials = int(n_trials)
     if n_trials < 1:
         raise ValueError("n_trials must be >= 1")
@@ -74,6 +93,11 @@ def sweep_under_flips(model, bits: int, p_grid: Sequence[float], h_test,
     n_p = len(p_grid)
     if not p_grid:
         return np.zeros((0, n_trials), np.float32)
+    fault_model = resolve_fault_model(fault_model)
+    # kernel-eligible models (iid) make the default call: one flip_corrupt
+    # launch a chunk, the same seeds, the same bits
+    zoo = ({} if fault_model is None or fault_model.kernel_eligible
+           else {"fault_model": fault_model})
     pred = (predict_encoded if predict_encoded is not None
             else type(model).predict_encoded)
     qmodel = model.quantized(int(bits))
@@ -91,7 +115,8 @@ def sweep_under_flips(model, bits: int, p_grid: Sequence[float], h_test,
     accs = torch.empty((n_p, n_trials), device=h.device)
     for c, ps in enumerate(pad_p_grid(p_grid, chunk)):
         noisy = qmodel.corrupted_materialized_grid(
-            [p for p in ps for _ in range(n_trials)], seeds * len(ps), scope)
+            [p for p in ps for _ in range(n_trials)], seeds * len(ps), scope,
+            **zoo)
         for k, model_k in enumerate(noisy):
             i, t = c * chunk + k // n_trials, k % n_trials
             if i < n_p:
@@ -102,7 +127,9 @@ def sweep_under_flips(model, bits: int, p_grid: Sequence[float], h_test,
 def evaluate_under_flips(model, bits: int, p: float, h_test, y_test, *,
                          n_trials: int = 3, scope: str = "all",
                          **kw) -> float:
-    """Mean accuracy over `n_trials` flip draws at one p (one sweep row)."""
+    """Mean accuracy over `n_trials` flip draws at one p (one sweep row);
+    keywords as ``sweep_under_flips`` (``fault_model=`` among them, `p`
+    then its severity)."""
     return float(np.mean(sweep_under_flips(model, bits, [p], h_test, y_test,
                                            n_trials=n_trials, scope=scope,
                                            **kw)))
