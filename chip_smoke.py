@@ -7,7 +7,7 @@ Run from the root of a checkout, with one card visible:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/repro_torch/``, holds each kernel against its plain PyTorch
-version on the card, then runs four classifier paths through the public
+version on the card, then runs five classifier paths through the public
 entry points at the paper's full width, the isolet surrogate (F=617, C=26,
 D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
 
@@ -36,7 +36,17 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    through ``hdc_encode``), an open-loop Poisson run of 512 requests at
    half the closed-loop rate, the encoded-input form once, and
    ``serve_forever`` followed by ``shutdown(drain=True)``;
-5. the LM: qwen3-1.7b at full width (28 layers, d_model 2,048, vocab
+5. extreme C: the class-sharded LogHD estimator (``class_sharding=8``)
+   over an NCCL process group of one rank, at the reference extreme
+   bench's shapes (C = 2^16 and 2^20, F = 32, D = 256) and at the full
+   width (C = 2^20, F = 617, D = 10,000, n = 20 bundles): fit, predict,
+   residency per shard, peak memory, labels at S = 1, 2, 8 against the
+   gathered plain route, the data-parallel fits at Dp = 2 (exact and int8
+   all-reduce), checkpoints by ``save_model`` and ``AsyncCheckpointer``,
+   and a 1-bit sweep (its ``flip_corrupt`` launch made again on the same
+   leaves and held bit for bit against plain, its accuracies against the
+   per-point loop);
+6. the LM: qwen3-1.7b at full width (28 layers, d_model 2,048, vocab
    151,936) with the LogHD vocab head (n = 20 bundles), weights drawn on
    the card from a seed: teacher-forced ``decode_step`` against
    ``forward`` over (2, 32) tokens in float32, then ``run_serving`` with
@@ -398,12 +408,13 @@ def phase_kernels(torch, dev) -> dict:
     check_profile_decode_rows(torch, dev, g)
     errs["flip_corrupt"] = check_flip_corrupt(torch, dev, g)
     # (n, B, D): LogHD refine, hybrid base, SparseHD retrain at budget 0.4,
-    # conventional, then n > 32, everything ragged, and more tiles than the
-    # card holds blocks at once (blocks walk several tiles)
+    # conventional, then n > 32, everything ragged, more tiles than the
+    # card holds blocks at once (blocks walk several tiles), and the
+    # extreme phase's Eq. 9 steps at C = 2^16 and 2^20 (D = 256)
     tol = TOL["float32"]
     for (n, b, d) in [(10, 64, 10000), (20, 64, 10000), (26, 64, 4000),
                       (26, 256, 10000), (40, 37, 1000), (3, 7, 130),
-                      (100, 64, 10000)]:
+                      (100, 64, 10000), (16, 64, 256), (20, 64, 256)]:
         m = l2_normalize(torch.randn((n, d), generator=g, device=dev))
         c = torch.randn((b, n), generator=g, device=dev)
         h = l2_normalize(torch.randn((b, d), generator=g, device=dev))
@@ -657,7 +668,7 @@ def enc_inputs(torch, dev, g, b: int, f: int, d: int):
 
 def check_hdc_encode(torch, dev, g) -> float:
     """hdc_encode against its plain version at the serving and predict
-    shapes, a D whose rows the normalisation cannot hold in registers
+    shapes, the extreme phase's (2,048 | 4,096 | 64, 32, 256), a D whose rows the normalisation cannot hold in registers
     (40,000 > 8 blocks x 2,048 columns), and ragged shapes (the last with
     D % 4 != 0, so W lands by cp.async, and x a view whose rows start off
     16-byte boundaries), every kind, rtol 2e-4
@@ -670,6 +681,7 @@ def check_hdc_encode(torch, dev, g) -> float:
     from repro_torch.precision import full_f32
     err64 = None
     for (b, f, d) in [(1, 617, 10000), (64, 617, 10000), (4096, 617, 10000),
+                      (2048, 32, 256), (4096, 32, 256), (64, 32, 256),
                       (3, 617, 40000), (100, 75, 2000), (37, 61, 1001)]:
         x, w, bias, center = enc_inputs(torch, dev, g, b, f, d)
         if (b, f, d) == (37, 61, 1001):   # rows that start off 16 bytes
@@ -1415,6 +1427,433 @@ def phase_fault_zoo(torch, dev, mm: dict) -> dict:
                 for fam, r in fams.items()},
             "word_diffs": diffs, "rates": rates, "encode_s": encode_s,
             "id_acc": id_acc}
+
+
+# the reference extreme bench's shapes (benchmarks/extreme_bench.py):
+# (C, training rows), F, D, predict batch; then the full width
+EXTREME_CASES = ((1 << 16, 2048), (1 << 20, 4096))
+EXTREME_F, EXTREME_D, EXTREME_B, EXTREME_S = 32, 256, 64, 8
+FULL_C, FULL_F, FULL_D, FULL_N = 1 << 20, 617, 10_000, 4096
+FULL_QUERIES = 512              # rows of the label check at S = 1, 2, 8
+PEAK_LIMIT = 4e9                # bytes allocated at most over fit + predict
+RESIDENT_RATIO = 1.2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_fit(torch, dev, c: int, f: int, d: int, x, y):
+    """A class-sharded LogHD fit through the front door, timed."""
+    from repro_torch.api import make_classifier
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clf = make_classifier("loghd", c, f, dim=d, refine_epochs=1,
+                          class_sharding=EXTREME_S, device=dev).fit(x, y)
+    torch.cuda.synchronize()
+    return clf, time.perf_counter() - t0
+
+
+def phase_extreme(torch, dev, smi: str) -> dict:
+    """The class-sharded estimator at extreme C, over an NCCL group of one
+    rank (the collectives run on the card): the reference bench's shapes
+    (C = 2^16 and 2^20 at D = 256, S = 8: fit, predict, residency), the
+    full width (C = 2^20, F = 617, D = 10,000, n = 20: fit stage walls,
+    peak memory, labels at S = 1, 2, 8 against the gathered plain route),
+    the data-parallel fits at Dp = 2 in the one rank, checkpoints written
+    synchronously and by AsyncCheckpointer, and a 1-bit sweep of the
+    C = 2^16 model; launch counting over the fits, predicts and the
+    sweep.  The group is destroyed at the end, whatever happened."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.api import sharded
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        return extreme_run(torch, dev, smi, t_phase)
+    finally:
+        dist.destroy_process_group()
+        sharded.clear_sharded_cache()
+
+
+def extreme_run(torch, dev, smi: str, t_phase: float) -> dict:
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.api import dispatch, shard_loghd_model
+    from repro_torch.kernels import common
+    from repro_torch.launch import mesh as dmesh
+
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"process group: {dist.get_backend()} of "
+          f"{dist.get_world_size()} ranks")
+    bench = {}
+    rng = np.random.default_rng(0)
+    data = {}
+    for c, n in EXTREME_CASES:
+        data[c] = (rng.normal(size=(n, EXTREME_F)).astype(np.float32),
+                   rng.integers(0, c, size=n),
+                   torch.as_tensor(rng.normal(size=(EXTREME_B, EXTREME_D))
+                                   .astype(np.float32), device=dev))
+    rng = np.random.default_rng(1)
+    x_full = rng.normal(size=(FULL_N, FULL_F)).astype(np.float32)
+    y_full = rng.integers(0, FULL_C, size=FULL_N)
+    xq_full = rng.normal(size=(FULL_QUERIES, FULL_F)).astype(np.float32)
+
+    # ---- the main path: fits, predicts and a sweep, launches counted ----
+    torch.cuda.synchronize()
+    common.reset_launches()
+    dmesh.collectives.clear()
+    for c, n in EXTREME_CASES:
+        x, y, xq = data[c]
+        clf, fit_s = sharded_fit(torch, dev, c, EXTREME_F, EXTREME_D, x, y)
+        labels = clf.predict_encoded(xq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            labels = clf.predict_encoded(xq)
+        torch.cuda.synchronize()
+        predict_s = (time.perf_counter() - t0) / 5
+        bench[c] = dict(clf=clf, fit_s=fit_s, predict_s=predict_s,
+                        labels=labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    full, full_fit_s = sharded_fit(torch, dev, FULL_C, FULL_F, FULL_D,
+                                   x_full, y_full)
+    t0 = time.perf_counter()
+    hq = full.encode(xq_full[:EXTREME_B])
+    full_labels = full.predict_encoded(hq)
+    torch.cuda.synchronize()
+    full_predict_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    small = bench[EXTREME_CASES[0][0]]
+    xq_small = data[EXTREME_CASES[0][0]][2]
+    # the sweep scores agreement with the clean 1-bit model's labels
+    sweep_y = dispatch.predict_encoded(small["clf"].model.quantized(1),
+                                       xq_small).cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep = small["clf"].sweep_under_flips(
+        1, P_GRID, xq_small, sweep_y, n_trials=N_TRIALS,
+        predict_encoded=dispatch.predict_encoded,
+        generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = dict(common.launches)
+    coll = dict(dmesh.collectives)
+    log(f"extreme path launches: {launches}; collectives {coll}")
+
+    # ---- checks and measurements, after the counts were read ----
+    check(launches.get("hdc_encode", 0) > 0, "extreme: hdc_encode never "
+          "launched")
+    check(launches.get("bundle_update", 0) > 0, "extreme: bundle_update "
+          "never launched")
+    check(launches.get("flip_corrupt", 0) == 1, f"extreme: flip_corrupt "
+          f"launched {launches.get('flip_corrupt', 0)} times, not once")
+    for name in ("bundle_sim", "profile_decode"):
+        check(launches.get(name, 0) == 0, f"extreme: {name} launched "
+              f"{launches.get(name)} times; the sharded class decodes in "
+              f"torch")
+    check(coll.get("all_gather", 0) > 0, "extreme: no all_gather was made")
+    for c, r in bench.items():
+        m = r["clf"].model
+        info = m.resident_bytes_per_device()
+        conv = c * EXTREME_D * 4
+        g = m.gathered()
+        plain = dispatch.predict_encoded(g, data[c][2], use_kernels=False)
+        n_diff = int((plain != r["labels"]).sum())
+        log(f"extreme C=2^{c.bit_length() - 1} ({smi}): n={m.n_bundles}, "
+            f"S={m.class_sharding}, fit {r['fit_s']:.4f} s, predict "
+            f"{r['predict_s'] * 1e3:.3f} ms a batch of {EXTREME_B} "
+            f"({EXTREME_B / r['predict_s']:.1f} queries/s); a shard's "
+            f"rows {info['max_bytes_per_device']} B (this rank's "
+            f"{info['bytes_this_rank']} B over its {EXTREME_S} blocks: on "
+            f"one rank the layout fixes it), ideal "
+            f"{info['ideal_bytes_per_device']:.0f}, ratio "
+            f"{info['ratio_to_ideal']:.4f}; stored {m.stored_bytes()} B = "
+            f"{m.stored_bytes() / conv:.6f} of a float32 C x D model; "
+            f"{n_diff} of {EXTREME_B} labels differ from the gathered "
+            f"plain route")
+        check(info["ratio_to_ideal"] <= RESIDENT_RATIO, f"C={c}: resident "
+              f"ratio {info['ratio_to_ideal']} above {RESIDENT_RATIO}")
+        check(n_diff == 0, f"C={c}: {n_diff} labels differ from gathered")
+    check(sweep.shape == (len(P_GRID), N_TRIALS), "extreme sweep shape")
+    check(all(a == 1.0 for a in sweep[0]), f"extreme sweep p=0 row "
+          f"{sweep[0]}: the clean 1-bit model disagrees with itself")
+    flips = check_extreme_flips(torch, small["clf"].model, xq_small, sweep_y,
+                                sweep)
+    log(f"extreme sweep (C=2^{EXTREME_CASES[0][0].bit_length() - 1}, "
+        f"1-bit, {len(P_GRID)} p x {N_TRIALS} trials, agreement with the clean 1-bit labels): " + ", ".join(
+            f"p={p} {v:.4f}" for p, v in zip(P_GRID, sweep.mean(1)))
+        + f"; wall {sweep_s:.4f} s, flip_corrupt launches "
+        f"{launches.get('flip_corrupt', 0)}; the launch again on its leaves "
+        f"{flips['shapes']}: {flips['n_diff']} elements differ from "
+        f"flip_corrupt_grid_ref, {flips['flipped']} codes flipped at "
+        f"p={P_GRID[-1]}; equal to the per-point loop ({smi})")
+
+    # the full width: stage walls of the same fit, peak memory, labels
+    m = full.model
+    check(m.n_classes == FULL_C and m.class_sharding == EXTREME_S,
+          "full-width layout")
+    stages = full_stage_walls(torch, dev, full, x_full, y_full)
+    log(f"extreme full width (C=2^{FULL_C.bit_length() - 1}, F={FULL_F}, "
+        f"D={FULL_D}, "
+        f"N={FULL_N}, S={EXTREME_S}, n={m.n_bundles}; {smi}): fit "
+        f"{full_fit_s:.3f} s; stages " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in stages.items())
+        + f"; predict {full_predict_s * 1e3:.2f} ms for {EXTREME_B} raw "
+        f"rows; peak allocated over fit and predict {peak / 1e9:.3f} GB "
+        f"above the {base_bytes / 1e9:.3f} GB held before "
+        f"(a float32 C x D array: {FULL_C * FULL_D * 4 / 1e9:.1f} GB)")
+    check(peak < PEAK_LIMIT, f"full width: peak {peak} B above "
+          f"{PEAK_LIMIT:.0f}")
+    hq_all = full.encode(xq_full)
+    g = m.gathered()
+    plain = dispatch.predict_encoded(g, hq_all, use_kernels=False)
+    check(torch.equal(full_labels, plain[:EXTREME_B]),
+          "full width: main-path labels differ from the gathered route")
+    diffs = {}
+    for s_ in (1, 2, EXTREME_S):
+        relaid = m if s_ == EXTREME_S else shard_loghd_model(g, s_)
+        got = dispatch.predict_encoded(relaid, hq_all)
+        diffs[s_] = int((got != plain).sum())
+    del plain
+    log(f"full width labels against the gathered plain route over "
+        f"{FULL_QUERIES} rows: rows differing at S=1, 2, 8: "
+        f"{[diffs[s_] for s_ in (1, 2, EXTREME_S)]}")
+    for s_, n_diff in diffs.items():
+        check(n_diff == 0, f"full width S={s_}: {n_diff} rows differ")
+
+    dp = extreme_dp(torch, dev, full, x_full, y_full, smi)
+    ck = extreme_checkpoints(torch, dev, m, hq_all, smi)
+    phase_s = time.perf_counter() - t_phase
+    log(f"extreme phase, checks included: {phase_s:.2f} s ({smi})")
+    return {"launches": launches, "collectives": coll, "peak_bytes": peak,
+            "stages": stages, "diffs": diffs, "dp": dp, "ckpt": ck,
+            "phase_s": phase_s, "sweep_s": sweep_s}
+
+
+def check_extreme_flips(torch, model, h, y, accs) -> dict:
+    """The extreme sweep's one ``flip_corrupt`` launch made again on the
+    same leaves (the 1-bit model's bundles and padded profile codes, as the
+    sweep's ``corrupted_materialized_grid`` collects them), points and
+    seeds, held bit for bit against ``flip_corrupt_grid_ref``; flips must
+    occur at p > 0; and the sweep's accuracy matrix `accs` against the
+    per-point loop (one-point launches).  Launches here are not the main
+    path's."""
+    import numpy as np
+    from repro_torch.core.faults import fault_skip_set
+    from repro_torch.core.quantize import QTensor
+    from repro_torch.kernels.flip_corrupt import (flip_corrupt_grid,
+                                                  flip_corrupt_grid_ref)
+    q = model.quantized(1)
+    d = {k: v for k, v in q.to_dict().items() if k != "enc"}
+    skip = fault_skip_set("all")
+    picked = [i for i, (k, v) in enumerate(d.items())
+              if k not in skip and isinstance(v, QTensor)]
+    vals = list(d.values())
+    leaves = [(vals[i].codes, vals[i].scale, vals[i].bits) for i in picked]
+    ps, rows = sweep_points(len(d))
+    seeds = [[row[i] for i in picked] for row in rows]
+    got = flip_corrupt_grid(leaves, ps, seeds)
+    want = flip_corrupt_grid_ref(leaves, ps, seeds)
+    torch.cuda.synchronize()
+    n_diff = fc_differing(torch, got, want)
+    # the last point is at the largest p, the first at p = 0
+    flipped = sum(int((o[-1] != o[0]).sum()) for o in got)
+    check(n_diff == 0, f"extreme sweep: flip_corrupt differs from its plain "
+          f"version in {n_diff} elements")
+    check(flipped > 0, "extreme sweep: no code flipped at the largest p")
+    loop = per_point_sweep(torch, model, 1, h, y, "all")
+    check(np.array_equal(loop, accs), "extreme sweep differs from the "
+          "per-point loop")
+    return {"n_diff": n_diff, "flipped": flipped,
+            "shapes": [tuple(c.shape) for c, _, _ in leaves]}
+
+
+def full_stage_walls(torch, dev, clf, x, y) -> dict:
+    """The fit's stages, each run again through the functions the fit runs
+    and timed: the codebook on the host, the encoding (on the fitted
+    encoder's projection), the streaming superposition, one Eq. 9 epoch
+    and the profile estimation; the result must be the fit's, bit for
+    bit."""
+    from repro_torch.api import fit_engine, sharded
+    from repro_torch.core import codebook as cb
+    from repro_torch.hdc.encoders import fit_encoder
+    cfg = clf.cfg
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    book = torch.as_tensor(cb.build_codebook(
+        cfg.n_classes, cfg.n_bundles, cfg.k, alpha=cfg.alpha, seed=cfg.seed,
+        method=cfg.codebook_method), device=dev)
+    torch.cuda.synchronize()
+    out["codebook"] = time.perf_counter() - t0
+    check(torch.equal(book[:8], clf.model.codebook[:8]), "stage codebook")
+    enc = clf.model.enc
+    t0 = time.perf_counter()
+    _, h = fit_encoder(clf.enc_cfg, x, device=dev, proj=enc["proj"],
+                       bias=enc["bias"])
+    torch.cuda.synchronize()
+    out["encode"] = time.perf_counter() - t0
+    yt = torch.as_tensor(y, device=dev)
+    t0 = time.perf_counter()
+    bundles = sharded.streaming_build_bundles(h, yt, book, cfg.k)
+    torch.cuda.synchronize()
+    out["streaming build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundles = fit_engine.fused_refine_bundles(
+        bundles, h, yt, book, cfg.k, epochs=cfg.refine_epochs, lr=cfg.lr,
+        batch_size=cfg.refine_batch, seed=cfg.seed)
+    torch.cuda.synchronize()
+    out["refine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    profiles = sharded.sharded_estimate_profiles(bundles, h, yt,
+                                                 cfg.n_classes, EXTREME_S)
+    torch.cuda.synchronize()
+    out["profiles"] = time.perf_counter() - t0
+    check(torch.equal(bundles, clf.model.bundles)
+          and torch.equal(profiles, clf.model.profiles),
+          "the staged fit differs from the front door's")
+    return out
+
+
+def extreme_dp(torch, dev, full, x, y, smi: str) -> dict:
+    """The data-parallel fits at Dp = 2 in the one rank of the group: the
+    exact OnlineHD fit against the serial fit on the interleaved batches,
+    int8 against exact, the Eq. 9 refinement on the full-width encodings
+    (lower target error, repeats bit for bit)."""
+    import numpy as np
+    from repro_torch.api import fit_engine, sharded
+    from repro_torch.core.bundling import symbol_targets
+    from repro_torch.hdc.conventional import class_prototypes, l2_normalize
+    from repro_torch.launch import mesh as dmesh
+    g = torch.Generator(device=dev).manual_seed(3)
+    # random rows and labels at D = 256 leave OnlineHD examples to
+    # misclassify (at D = 10,000 each row wins its own class's mean and
+    # every delta is zero)
+    n, d, c, bs, dp = 2048, 256, 26, 64, 2
+    h = l2_normalize(torch.randn((n, d), device=dev, generator=g))
+    yy = torch.randint(0, c, (n,), device=dev, generator=g)
+    protos = class_prototypes(h, yy, c)
+    mesh = sharded.class_mesh(1, dp)
+    before = dmesh.collectives["all_reduce"]
+    t0 = time.perf_counter()
+    exact = fit_engine.fused_onlinehd_fit_dp(
+        protos, h, yy, lr=3e-3, batch_size=bs, epochs=2, mesh=mesh,
+        compress=None)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    reduces = dmesh.collectives["all_reduce"] - before
+    int8 = fit_engine.fused_onlinehd_fit_dp(
+        protos, h, yy, lr=3e-3, batch_size=bs, epochs=2, mesh=mesh,
+        compress="int8")
+    local_bs, n_local = bs // dp, n // dp
+    order = torch.as_tensor(np.concatenate([
+        np.concatenate([np.arange(local_bs) + b * local_bs + s * n_local
+                        for s in range(dp)])
+        for b in range(n_local // local_bs)]), device=dev)
+    serial = fit_engine.fused_onlinehd_fit(
+        protos, h[order], yy[order], lr=3e-3, batch_size=bs, epochs=2,
+        use_kernel=False)
+    err_serial = max_err(exact, serial)
+    err_int8 = max_err(int8, exact)
+    moved = max_err(exact, protos)
+    check(moved > 0 and err_int8 > 0, f"dp fits: the exact fit moved the "
+          f"prototypes by {moved}, int8 differs by {err_int8}; both must "
+          f"be above 0 for the checks below to test anything")
+    check(bool(torch.allclose(exact, serial, rtol=1e-5, atol=1e-6)),
+          f"dp exact fit against the serial fit: max abs err {err_serial}")
+    check(bool(torch.allclose(int8, exact, rtol=1e-3, atol=1e-3)),
+          f"dp int8 fit against the exact one: max abs err {err_int8}")
+    check(reduces == 2 * (n_local // local_bs), f"dp fit: {reduces} "
+          f"all-reduces, not one a step")
+
+    m = full.model
+    hf = full.encode(x)
+    yt = torch.as_tensor(y, device=dev)
+    book = m.full_rows().codebook[:m.n_classes]
+    ty = symbol_targets(book, full.cfg.k).to(dev)[yt]
+
+    def target_err(b):
+        return float(torch.mean((hf @ b.T - ty) ** 2))
+    # from random bundles, as the reference's test starts: the fitted ones
+    # sit near the floor that unit rows allow for random targets
+    m0 = l2_normalize(torch.randn(m.bundles.shape, device=dev, generator=g))
+    kw = dict(epochs=2, lr=1e-2, batch_size=64, mesh=sharded.class_mesh(
+        EXTREME_S, dp))
+    t0 = time.perf_counter()
+    refined = fit_engine.fused_refine_bundles_dp(m0, hf, yt, book,
+                                                 full.cfg.k, **kw)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    again = fit_engine.fused_refine_bundles_dp(m0, hf, yt, book, full.cfg.k,
+                                               **kw)
+    e0, e1 = target_err(m0), target_err(refined)
+    check(e1 < e0, f"dp refinement raised the target error {e0} -> {e1}")
+    check(torch.equal(refined, again), "dp refinement does not repeat")
+    log(f"dp fits at Dp=2 in one NCCL rank ({smi}): OnlineHD ({n} x {d}, "
+        f"C={c}, 2 epochs; prototypes moved {moved:.3e}) exact vs serial "
+        f"max abs err {err_serial:.3e}, int8 vs exact {err_int8:.3e}, "
+        f"{reduces} all-reduces, {exact_s:.4f} s; "
+        f"Eq. 9 at the full width from random bundles (2 epochs, S=8 x Dp=2 "
+        f"mesh) target error "
+        f"{e0:.6f} -> {e1:.6f} in {refine_s:.4f} s, repeat bitwise equal")
+    return {"err_serial": err_serial, "err_int8": err_int8,
+            "target_err": (e0, e1), "exact_s": exact_s,
+            "refine_s": refine_s}
+
+
+def extreme_checkpoints(torch, dev, m, hq, smi: str) -> dict:
+    """The full-width model written by save_model and by AsyncCheckpointer:
+    byte-equal files, equal labels after loading."""
+    import filecmp
+    import os
+
+    from repro_torch.api import load_model, save_model
+    from repro_torch.api.checkpointing import model_tree
+    from repro_torch.checkpoint.ckpt import AsyncCheckpointer
+    root = ROOT / "build" / "chip_smoke_extreme"
+    if root.exists():
+        shutil.rmtree(root)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_model(str(root / "sync"), 0, m)
+    sync_s = time.perf_counter() - t0
+    ac = AsyncCheckpointer(str(root / "async"))
+    t0 = time.perf_counter()
+    ac.save(0, model_tree(m))
+    return_s = time.perf_counter() - t0
+    ac.wait()
+    async_s = time.perf_counter() - t0
+    da, db = root / "sync" / "step_000000000", root / "async" / \
+        "step_000000000"
+    names = sorted(os.listdir(da))
+    check(names == sorted(os.listdir(db)), "checkpoint file lists differ")
+    for f in names:
+        check(filecmp.cmp(da / f, db / f, shallow=False),
+              f"checkpoint file {f} differs between the writers")
+    want = m.predict_encoded(hq)
+    for sub in ("sync", "async"):
+        back = load_model(str(root / sub), device=dev)
+        check(torch.equal(back.predict_encoded(hq), want),
+              f"labels of the {sub} checkpoint differ")
+    size = sum((da / f).stat().st_size for f in names)
+    log(f"checkpoints of the full-width model ({size / 1e6:.1f} MB, "
+        f"{len(names)} files; {smi}): save_model {sync_s:.3f} s; "
+        f"AsyncCheckpointer save() returned in {return_s:.3f} s, written in "
+        f"{async_s:.3f} s; files byte-equal, loaded labels equal")
+    return {"sync_s": sync_s, "async_return_s": return_s,
+            "async_s": async_s, "bytes": size}
 
 
 def served_labels(svc, name: str, rows, encoded: bool = False):
@@ -2326,6 +2765,7 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo = phase_fault_zoo(torch, dev, mm)
     log(f"fault zoo phase, checks included: {time.perf_counter() - t0:.2f} s")
+    extreme = phase_extreme(torch, dev, smi)
     serve = phase_serving(torch, dev, main_run, mm)
     phase_fit_profile(torch, mm)
     lm = phase_lm(torch, dev)
@@ -2340,6 +2780,7 @@ def main() -> int:
     by_path.update({f"matched_memory_{name}": r["launches"]
                     for name, r in mm["families"].items()})
     by_path["fault_zoo"] = zoo["launches"]
+    by_path["extreme"] = extreme["launches"]
     by_path["serve"] = serve["launches"]
     by_path.update({f"lm_serve_{head}": lm[head]["launches"]
                     for head in ("loghd", "dense")})
@@ -2351,6 +2792,7 @@ def main() -> int:
     bs_batches.update({f"matched_memory_{name}": r["bs_batches"]
                        for name, r in mm["families"].items()})
     bs_batches["fault_zoo"] = zoo["bs_batches"]
+    bs_batches["extreme"] = none
     bs_batches["serve"] = serve["bs_batches"]
     bs_batches.update({f"lm_serve_{head}": none for head in ("loghd", "dense")})
     for p, c in bs_batches.items():

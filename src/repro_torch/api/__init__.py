@@ -10,6 +10,12 @@
                                  predict_encoded=dispatch.predict_encoded)
     save_model("ckpt", 0, clf.model)            # the JAX package's layout
     model = load_model("ckpt")                  # newest step, on "cuda"
+
+``make_classifier("loghd", ..., class_sharding=S, data_sharding=Dp)``
+fits the class-sharded ``ShardedLogHDModel`` (``api/sharded.py``): profile
+and codebook rows split into S blocks over the ranks of the process group
+(all on one rank without one), the Eq. 9 refinement data-parallel over Dp
+example shards.
 """
 
 from repro_torch.api import dispatch
@@ -21,12 +27,14 @@ from repro_torch.api.models import (ConventionalModel, HDModel, HybridModel,
 from repro_torch.api.registry import (HDClassifier, MethodSpec,
                                       available_methods, get_method,
                                       make_classifier, register_method)
+from repro_torch.api.sharded import ShardedLogHDModel, shard_loghd_model
 from repro_torch.core.evaluate import sweep_under_flips
 
 __all__ = ["dispatch", "from_reference", "to_reference", "save_model",
            "load_model", "model_spec", "register_cache_clearer",
            "clear_cache", "HDModel",
            "ConventionalModel", "SparseHDModel", "LogHDModel", "HybridModel",
+           "ShardedLogHDModel", "shard_loghd_model",
            "HDClassifier", "MethodSpec", "available_methods",
            "get_method", "make_classifier", "register_method",
            "sweep_under_flips"]

@@ -107,11 +107,16 @@ def fit_loghd_model(cfg: LogHDConfig, enc_cfg: EncoderConfig, x, y, *,
     generator seeded with ``cfg.seed``) -> bundle superposition -> Eq. 9
     refinement -> activation-profile estimation, plus ``sigma_inv`` (the
     inverse pooled within-class activation covariance) for the Mahalanobis
-    decode."""
+    decode.
+
+    ``cfg.class_sharding > 1`` (or ``data_sharding > 1``) hands the whole
+    fit to the class-sharded estimator, ``repro_torch.api.sharded``, which
+    returns a ``ShardedLogHDModel``."""
     if cfg.class_sharding > 1 or cfg.data_sharding > 1:
-        raise NotImplementedError(
-            "class_sharding / data_sharding > 1: the sharded LogHD estimator "
-            "is not ported yet")
+        from repro_torch.api.sharded import fit_loghd_sharded
+        return fit_loghd_sharded(cfg, enc_cfg, x, y, device=device, enc=enc,
+                                 encoded=encoded, prototypes=prototypes,
+                                 base=base, generator=generator, perms=perms)
     device = torch.device(device)
     enc, h = _encoder_and_encodings(enc_cfg, x, device, enc, encoded,
                                     generator)

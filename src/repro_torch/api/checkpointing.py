@@ -21,15 +21,17 @@ import json
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.api.models import MODEL_CLASSES, HDModel
-from repro_torch.checkpoint.ckpt import (LeafSpec, latest_step,
+from repro_torch.checkpoint.ckpt import (LeafSpec, _step_dir, latest_step,
                                          read_scalar_leaves,
                                          restore_checkpoint, save_checkpoint)
 from repro_torch.core.quantize import QTensor
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import distributed, rank
 
-__all__ = ["save_model", "load_model", "model_spec"]
+__all__ = ["save_model", "load_model", "model_spec", "model_tree"]
 
 # fields the port holds in another integer dtype than the files carry
 _PORT_DTYPES = {"keep": torch.int64}
@@ -79,13 +81,33 @@ def model_spec(model: HDModel) -> dict:
             "fields": fields}
 
 
-def save_model(ckpt_dir: str, step: int, model: HDModel) -> str:
-    """Atomically save a typed model (f32 or quantized).  Returns the
-    committed directory path."""
+def model_tree(model: HDModel) -> dict:
+    """The tree ``save_model`` writes (the model's leaves as the JAX package
+    holds them, and its spec); ``checkpoint.ckpt.AsyncCheckpointer`` writes
+    the same files from it.  A class-sharded model gives every rank's rows
+    (a collective when a process group is initialised)."""
+    if hasattr(model, "full_rows"):
+        model = model.full_rows()
     disk = model.replace(**{k: _on_disk(v)
                             for k, v in model.to_dict().items()})
-    tree = {"model": disk, "spec": json.dumps(model_spec(model))}
-    return save_checkpoint(ckpt_dir, step, tree)
+    return {"model": disk, "spec": json.dumps(model_spec(model))}
+
+
+def save_model(ckpt_dir: str, step: int, model: HDModel) -> str:
+    """Atomically save a typed model (f32 or quantized).  Returns the
+    committed directory path.
+
+    A class-sharded LogHD model is written with every rank's rows (the
+    padded class axis, the JAX package's layout): with a process group,
+    every rank must call this, the ranks' rows are gathered, rank 0 writes
+    and the others wait for its commit."""
+    sharded = hasattr(model, "full_rows")
+    tree = model_tree(model)
+    if not (sharded and distributed()):
+        return save_checkpoint(ckpt_dir, step, tree)
+    path = save_checkpoint(ckpt_dir, step, tree) if rank() == 0 else None
+    dist.barrier()
+    return path or _step_dir(ckpt_dir, step)
 
 
 def _read_spec(ckpt_dir: str, step: int) -> dict:
@@ -112,7 +134,9 @@ def load_model(ckpt_dir: str, step: Optional[int] = None, *,
                device=None) -> HDModel:
     """Restore a typed model saved with ``save_model`` (by either package)
     onto `device` (None means "cuda", and raises without a card).
-    ``step=None`` loads the newest committed step."""
+    ``step=None`` loads the newest committed step.  A class-sharded LogHD
+    model loads at any world size: each rank keeps its own rows of the
+    saved class axis."""
     device = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -126,7 +150,11 @@ def load_model(ckpt_dir: str, step: Optional[int] = None, *,
     model = restore_checkpoint(ckpt_dir, step,
                                {"model": skeleton, "spec": ""},
                                device=device)["model"]
-    return model.replace(**{k: getattr(model, k).to(dtype)
-                            for k, dtype in _PORT_DTYPES.items()
-                            if isinstance(getattr(model, k, None),
-                                          torch.Tensor)})
+    model = model.replace(**{k: getattr(model, k).to(dtype)
+                             for k, dtype in _PORT_DTYPES.items()
+                             if isinstance(getattr(model, k, None),
+                                           torch.Tensor)})
+    if hasattr(model, "full_rows"):
+        from repro_torch.api.sharded import place_sharded
+        model = place_sharded(model)
+    return model

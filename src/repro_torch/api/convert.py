@@ -10,11 +10,12 @@ encoder as a dict of arrays and each ``QTensor`` leaf as a
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.api.models import MODEL_CLASSES, HDModel
+from repro_torch.api.models import MODEL_CLASSES, HDModel, LogHDModel
 from repro_torch.core.quantize import QTensor
 
 
@@ -53,18 +54,36 @@ def model_class(fields) -> type:
 
 
 def from_reference(arrays: dict, *, device, metric: str = "l2",
-                   encoder_kind: str = "cos") -> HDModel:
+                   encoder_kind: str = "cos",
+                   class_sharding: Optional[int] = None,
+                   n_classes_real: int = 0) -> HDModel:
     """The port's model on `device` from a reference model's numpy field
     dict; the family is read from the field set.  `metric` applies to the
-    families that decode profiles."""
+    families that decode profiles.  ``class_sharding`` (with
+    ``n_classes_real``, the aux fields of the reference's
+    ``ShardedLogHDModel``) makes a class-sharded LogHD model from the
+    reference's padded rows, of which this rank keeps its own."""
     device = torch.device(device)
     cls = model_class(arrays)
     aux = {"metric": metric, "encoder_kind": encoder_kind}
+    if class_sharding is not None:
+        from repro_torch.api.sharded import ShardedLogHDModel, place_sharded
+        if cls is not LogHDModel:
+            raise ValueError(f"class_sharding applies to LogHD, not "
+                             f"{cls.__name__}")
+        model = ShardedLogHDModel.from_dict(
+            {k: _to_torch(v, device) for k, v in arrays.items()}, **aux,
+            class_sharding=int(class_sharding),
+            n_classes_real=int(n_classes_real))
+        return place_sharded(model)
     return cls.from_dict({k: _to_torch(v, device) for k, v in arrays.items()},
                          **{k: aux[k] for k in cls.aux_fields})
 
 
 def to_reference(model: HDModel) -> dict:
     """The inverse: the model's field dict as numpy arrays (QTensor leaves
-    as ``(codes, scale, bits)``)."""
+    as ``(codes, scale, bits)``); a class-sharded model gives every rank's
+    rows, padded as the reference holds them."""
+    if hasattr(model, "full_rows"):
+        model = model.full_rows()
     return {k: _to_numpy(v) for k, v in model.to_dict().items()}

@@ -148,7 +148,8 @@ def make_classifier(name: str, n_classes: int,
     available; pass ``device="cpu"`` to run the plain versions on the CPU.
     ``method_kw`` goes to the family's config (e.g. ``k=2,
     extra_bundles=5, refine_epochs=50`` for loghd, ``sparsity=0.6`` for
-    sparsehd)."""
+    sparsehd).  ``class_sharding=S`` (and ``data_sharding=Dp``) on loghd
+    fits the class-sharded ``ShardedLogHDModel`` (``api/sharded.py``)."""
     device = resolve_device(device)
     spec = get_method(name)
     if enc_cfg is None:

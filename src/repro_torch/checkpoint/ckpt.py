@@ -1,5 +1,6 @@
 """Atomic checkpoints in the JAX package's on-disk layout (port of
-``repro.checkpoint.ckpt``, without its async writer and sharded restore).
+``repro.checkpoint.ckpt``; a class-sharded model's elastic restore is
+``api.checkpointing.load_model``, which keeps each rank's rows).
 
 Layout:  <dir>/step_<N>/
             manifest.json          — tree structure, shapes, dtypes
@@ -31,6 +32,7 @@ import dataclasses
 import json
 import os
 import shutil
+import threading
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -40,7 +42,7 @@ from repro_torch.core.quantize import QTensor
 from repro_torch.kernels.common import resolve_device
 
 __all__ = ["LeafSpec", "save_checkpoint", "restore_checkpoint",
-           "latest_step", "read_scalar_leaves"]
+           "latest_step", "read_scalar_leaves", "AsyncCheckpointer"]
 
 
 class LeafSpec(NamedTuple):
@@ -156,23 +158,31 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:09d}")
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
-    """Blocking save.  Returns the committed directory path."""
-    leaves = _flatten(tree)
+def _host_leaves(tree, copy: bool = False) -> tuple[str, list]:
+    """The tree's structure string and its leaves on the host: array leaves
+    as (numpy array written to disk, dtype name), scalars as they are.
+    ``copy`` detaches the arrays from the tree's own memory (a CPU tensor's
+    numpy view shares it)."""
+    leaves = [(np.array(_to_numpy(leaf), copy=copy), _dtype_name(leaf))
+              if _is_array(leaf) else leaf for leaf in _flatten(tree)]
+    return f"PyTreeDef({_treedef(tree)})", leaves
+
+
+def _save_host(ckpt_dir: str, step: int, treedef: str, leaves: list) -> str:
+    """Write host leaves (``_host_leaves``) as a committed checkpoint."""
     final = _step_dir(ckpt_dir, step)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
 
-    manifest = {"step": step, "treedef": f"PyTreeDef({_treedef(tree)})",
+    manifest = {"step": step, "treedef": treedef,
                 "n_leaves": len(leaves), "leaves": []}
     for i, leaf in enumerate(leaves):
-        if _is_array(leaf):
-            arr = _to_numpy(leaf)
+        if isinstance(leaf, tuple):
+            arr, dtype = leaf
             np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
-            manifest["leaves"].append({"kind": "array",
-                                       "dtype": _dtype_name(leaf),
+            manifest["leaves"].append({"kind": "array", "dtype": dtype,
                                        "shape": list(arr.shape)})
         else:
             manifest["leaves"].append({"kind": "scalar", "value": leaf})
@@ -185,6 +195,48 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
     with open(os.path.join(final, "COMMIT"), "w") as f:
         f.write("ok")
     return final
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
+    """Blocking save.  Returns the committed directory path."""
+    return _save_host(ckpt_dir, step, *_host_leaves(tree))
+
+
+class AsyncCheckpointer:
+    """Single-outstanding-write async checkpointing.
+
+    ``save()`` copies the tree's tensors to the host synchronously (cheap
+    beside a training step), then writes the files on a daemon thread;
+    ``wait()`` joins it and re-raises an error of the writer.  A training
+    loop calls ``save()`` every few steps and ``wait()`` before it exits;
+    ``save()`` waits for the write before it.  The files are those of
+    ``save_checkpoint``, byte for byte."""
+
+    def __init__(self, ckpt_dir: str):
+        self.ckpt_dir = ckpt_dir
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, step: int, tree: Any) -> None:
+        self.wait()
+        host = _host_leaves(tree, copy=True)
+
+        def write():
+            try:
+                _save_host(self.ckpt_dir, step, *host)
+            except BaseException as e:      # surfaced on the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def _manifest(ckpt_dir: str, step: int) -> tuple[str, dict]:

@@ -200,6 +200,52 @@ def build_codebook(n_classes: int, n_bundles: int, k: int, *,
     return codes.astype(np.int32)
 
 
+def build_codebook_rows(n_classes: int, n_bundles: int, k: int,
+                        row_start: int, row_stop: int, *,
+                        alpha: float = 1.0, eps: float = 1e-6,
+                        pool_size: int = 1 << 18, seed: int = 0,
+                        method: str = "auto",
+                        xi: Optional[np.ndarray] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> np.ndarray:
+    """Rows ``[row_start, row_stop)`` of ``build_codebook(...)``: a class
+    shard builds its own rows.
+
+    The stratified method ("auto" at extreme C) computes the pool order and
+    the snake picks once and gathers only the requested rows, so the (C, n)
+    code matrix is never assembled; greedy and distance selections depend
+    on every earlier class, so they build the whole book and slice it
+    (``xi`` / ``generator`` as in ``build_codebook``).
+
+    >>> full = build_codebook(13, 5, 2, method="stratified", seed=3)
+    >>> rows = build_codebook_rows(13, 5, 2, 4, 9, method="stratified",
+    ...                            seed=3)
+    >>> bool(np.array_equal(rows, full[4:9]))
+    True
+    """
+    _validate_codebook_args(n_classes, n_bundles, k)
+    if not 0 <= row_start <= row_stop <= n_classes:
+        raise ValueError(f"bad row range [{row_start}, {row_stop}) "
+                         f"for C={n_classes}")
+    pool = candidate_pool(k, n_bundles, max(pool_size, 2 * n_classes), seed)
+    if pool.shape[0] < n_classes:
+        raise ValueError("candidate pool smaller than number of classes")
+    if _resolve_method(method, n_classes, pool.shape[0]) != "stratified":
+        return build_codebook(n_classes, n_bundles, k, alpha=alpha, eps=eps,
+                              pool_size=pool_size, seed=seed, method=method,
+                              xi=xi, generator=generator)[row_start:row_stop]
+    w = (pool.astype(np.float64) / (k - 1)) ** alpha
+    picks = _stratified_picks(w.sum(axis=1), n_classes, seed)
+    return pool[picks[row_start:row_stop]].astype(np.int32)
+
+
+def bundle_loads(codebook, k: int, alpha: float = 1.0) -> torch.Tensor:
+    """Per-bundle cumulative load L_j = sum_c U(g(B_cj)) (the Eq. 3
+    objective): (C, n) codes -> (n,) float32."""
+    return torch.sum(capacity(symbol_weight(torch.as_tensor(codebook), k),
+                              alpha), dim=0)
+
+
 def verify_unique(codebook: np.ndarray) -> bool:
     """Every class must map to a distinct code."""
     return len(np.unique(codebook, axis=0)) == codebook.shape[0]

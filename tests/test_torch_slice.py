@@ -337,10 +337,18 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
                            **KW).device.type == "cpu"
 
 
-def test_unported_options_raise():
-    x, y = np.zeros((4, 10), np.float32), np.arange(4) % 2
-    for kw in (dict(refine_epochs=0, class_sharding=2),
-               dict(refine_epochs=0, data_sharding=2)):
-        clf = make_classifier("loghd", 2, 10, dim=64, device="cpu", **kw)
-        with pytest.raises(NotImplementedError):
-            clf.fit(x, y)
+@pytest.mark.parametrize("kw", [dict(class_sharding=2),
+                                dict(data_sharding=2)])
+def test_sharding_options_route_to_the_sharded_fit(kw):
+    """class_sharding / data_sharding above 1 fit the class-sharded
+    estimator (tests/test_torch_sharded.py holds it against the
+    reference)."""
+    from repro_torch.api import ShardedLogHDModel
+    x = np.random.default_rng(0).normal(size=(8, 10)).astype(np.float32)
+    y = np.arange(8) % 2
+    clf = make_classifier("loghd", 2, 10, dim=64, device="cpu",
+                          refine_epochs=1, **kw)
+    model = clf.fit(x, y, generator=torch.Generator().manual_seed(0)).model
+    assert isinstance(model, ShardedLogHDModel)
+    assert model.class_sharding == kw.get("class_sharding", 1)
+    assert model.n_classes == 2 and model.kernel_dispatch is False
