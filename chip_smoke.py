@@ -52,7 +52,18 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    ``forward`` over (2, 32) tokens in float32, then ``run_serving`` with
    ``launch/serve.py``'s traffic (6 requests, prompts of 3 + i mod 5
    tokens, 4 slots, 16 new tokens, ``max_len`` 256, greedy) in bfloat16,
-   once with the loghd head and once with the dense head.
+   once with the loghd head and once with the dense head;
+7. LM training at the same width (bf16, remat "full"): the ``loghd_head``
+   gradient (kernel forward, torch backward) against autograd through the
+   plain version at the training shape (1,024, 2,048, 20, 151,936) in bf16
+   and float32, nonzero gradients on every parameter, 20 steps of
+   ``make_train_step`` at ``launch/train.py``'s defaults (batch 8 x 128,
+   AdamW with float32 moments, peak LR 3e-4, warmup 10) under each head
+   (the dense head's losses falling, the loghd head's held step by step
+   against the same steps through the plain head on the card), one
+   chunked-CE step at (2, 1,024), ``run_training`` with int8 moments and
+   its ~7 GB checkpoint under ``build/``, and a stop / resume against a
+   straight run at two layers.
 
 It checks each kernel against its plain version (``flip_corrupt`` bit for
 bit, batched over 1 and 18 points at bits 1, 2, 4 and 8 on LogHD's,
@@ -84,9 +95,11 @@ bit for bit, that an encoded row has the same bits at B = 1, 64 and
 1,559, that served labels equal ``predict`` of the loaded model (of
 its int8 quantization for the int8 residency), that ``loghd_head`` rows
 are bitwise independent of the batch, that the LM's decode matches its
-forward within 2e-3, and that ``loghd_head`` launches exactly once per
+forward within 2e-3, that ``loghd_head`` launches exactly once per
 decode step under the loghd head, never under the dense one, with the
-same tokens on a repeat; then it times every kernel, its plain version
+same tokens on a repeat, and exactly once per training step (4 times in
+the chunked step: a forward and a recomputation per chunk), never under
+the dense head; then it times every kernel, its plain version
 and a library call with CUDA events and the profiler, and the chained
 launches by their span in a CUDA graph (``graph_span_ms``): ``bundle_sim``
 then ``profile_decode`` at 64 and 1,559 rows with the chain on and off,
@@ -2258,6 +2271,473 @@ def phase_lm(torch, dev, cfg32=None, cfg16=None) -> dict:
     return out
 
 
+# the training phase: the loghd_head gradient at the CLI's training batch
+# (global batch 8 x seq 128 = 1,024 rows), against autograd through the
+# plain version, each gradient's max abs error relative to its max: float32
+# at the forward's float32 rtol (LH_TOL), bfloat16 at the JAX package's
+# bf16 kernel tolerance (TOL): a bf16 gradient is rounded to 8 bits once
+# on both routes, 2^-8 = 3.9e-3 of a value
+LT_SHAPE = (1024, 2048, 20, 151936)
+LT_GRAD_BOUND = {"float32": 1e-4, "bfloat16": 2e-2}
+LT_STEPS = 20               # steps a head at the CLI's defaults
+LT_BATCH, LT_SEQ = 8, 128   # launch/train.py's --global-batch, --seq-len
+LT_CHUNKED = (2, 1024)      # (B, S) of the chunked-CE step: 2 chunks of 512
+# the chunked loss against the unchunked one: only the float32 sum of the
+# token NLLs is ordered otherwise (loghd_head rows do not depend on B)
+LT_CHUNK_RTOL = 1e-5
+# the loghd head's 20 losses through the kernel against the same steps with
+# the head through its plain version on the card: the forwards differ in
+# float32 rounding (about 1e-6 of a logit), and a bf16 parameter rounded
+# the other way moves the later losses; both routes repeat bit for bit, and
+# two runs on the H100 measured the same largest difference, 4.56e-3 (at
+# the 18th step), so the bound is about twice it
+LT_PLAIN_ATOL = 1e-2
+# the resumed run's losses against the straight run's when the card's
+# backward is not bitwise repeatable (atomic adds in the embedding's
+# backward): a bf16 parameter rounded the other way moves a loss by about
+# 2^-8 of a step's change
+LT_RESUME_RTOL = 2e-3
+TRAIN_CKPT_DIR = ROOT / "build" / "chip_smoke_train_ckpt"
+
+
+def check_head_grad(torch, dev, shape=LT_SHAPE) -> dict:
+    """loghd_head's autograd Function (kernel forward, torch backward)
+    against autograd through the plain version, in bfloat16 and float32:
+    the logits bitwise the kernel-only call's and within LH_TOL of the
+    plain logits (in float32 with the same argmax), each gradient within
+    LT_GRAD_BOUND of plain relative to its max."""
+    from repro_torch.kernels.loghd_head import (loghd_head_autograd,
+                                                loghd_head_logits,
+                                                loghd_head_logits_ref)
+    from repro_torch.precision import full_f32
+    b, d, n, v = shape
+    g = torch.Generator(device=dev).manual_seed(21)
+    h32 = torch.randn((b, d), generator=g, device=dev)
+    m32 = torch.randn((n, d), generator=g, device=dev) / d ** 0.5
+    p32 = torch.randn((v, n), generator=g, device=dev) * 0.05
+    up = torch.randn((b, v), generator=g, device=dev) / (b * 8)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        leaves = [t.to(dt).requires_grad_() for t in (h32, m32, p32)]
+        plain = [t.detach().clone().requires_grad_() for t in leaves]
+        with torch.no_grad():
+            want_fwd = loghd_head_logits(*[t.detach() for t in leaves])
+        got = loghd_head_autograd(*leaves)
+        check(torch.equal(got, want_fwd),
+              f"loghd_head autograd forward ({name}) differs from the "
+              f"kernel-only call")
+        del want_fwd
+        with full_f32():
+            ref = loghd_head_logits_ref(*plain)
+        fwd_err = max_err(got, ref)
+        log(f"loghd_head logits at {shape} {name}: max_abs_err {fwd_err:.3e} "
+            f"against plain ({LH_TOL[name]})")
+        torch.testing.assert_close(got.detach(), ref.detach(), **LH_TOL[name])
+        if dt == torch.float32:
+            check(torch.equal(got.argmax(-1), ref.argmax(-1)),
+                  f"loghd_head {shape} argmax differs from plain (f32)")
+        got.backward(up)
+        del got
+        with full_f32():
+            ref.backward(up)
+        del ref
+        torch.cuda.synchronize()
+        errs = {"logits": fwd_err}
+        grads = {}
+        for label, t, r in zip(("dh", "dM", "dP"), leaves, plain):
+            check(t.grad.dtype == dt and bool(torch.isfinite(t.grad).all()),
+                  f"loghd_head {label} ({name}) not finite or of dtype "
+                  f"{t.grad.dtype}")
+            grads[label] = max_err(t.grad, r.grad) / float(
+                r.grad.float().abs().max())
+        log(f"loghd_head gradient at {shape} {name}: max abs error against "
+            f"plain relative to its max: " + ", ".join(
+                f"{k} {e:.3e}" for k, e in grads.items())
+            + f" (bound {LT_GRAD_BOUND[name]})")
+        check(all(e <= LT_GRAD_BOUND[name] for e in grads.values()),
+              f"loghd_head gradient ({name}) beyond {LT_GRAD_BOUND[name]} "
+              f"of plain: {grads}")
+        errs.update(grads)
+        out[name] = errs
+        del leaves, plain
+    del up
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_step_times(torch, cfg, model, opt_state, step_fn, pipe,
+                     step0: int) -> dict:
+    """After the counted steps: one step profiled (device time by kernel,
+    and its own wall, which the idle share divides by), then the optimizer
+    alone and the head alone (forward and backward), each the median of 3
+    walls around a synchronisation."""
+    from repro_torch.models.model import _xent_from_logits, loss_fn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    batch = pipe.batch(step0)
+    state = {"step": step0, "walls": []}
+
+    def one_step():
+        state["step"] += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step_fn(model, opt_state, batch, state["step"])[2].item()
+        state["walls"].append((time.perf_counter() - t0) * 1e3)
+        return loss
+
+    busy, count, top = profile_calls(torch, one_step, calls=1)
+    profiled_ms = state["walls"][-1]
+    params = dict(model.named_parameters())
+    loss = loss_fn(model, cfg, batch["tokens"], batch["targets"])
+    grads = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()))))
+    del loss
+
+    def wall_ms(fn, reps: int = 3) -> float:
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    opt_ms = wall_ms(lambda: adamw_update(opt_state, params, grads,
+                                          AdamWConfig(), lr=1e-6))
+    del grads
+    with torch.no_grad():
+        x = model.backbone(batch["tokens"])
+    x.requires_grad_()
+    head_params = list(model.head.parameters())
+    targets = batch["targets"].long()
+
+    def head():
+        nll = _xent_from_logits(model.head(x), targets) / targets.numel()
+        torch.autograd.grad(nll, [x, *head_params])
+    head_ms = wall_ms(head)
+    return dict(profiled_busy_ms=busy, profiled_wall_ms=profiled_ms,
+                kernels_per_step=count, top=top, opt_ms=opt_ms,
+                head_ms=head_ms)
+
+
+def train_losses(torch, dev, cfg, steps: int = LT_STEPS) -> dict:
+    """`steps` training steps of `cfg` at the CLI's defaults through
+    ``make_train_step`` from seed 0 and the ``TokenPipeline`` of seed 0:
+    the model, its losses, each step's wall and ``loghd_head`` launches,
+    the launches in all and the peak allocated bytes."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import common
+    from repro_torch.models.convert import stacked_layers
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.train_loop import (TrainLoopConfig,
+                                                make_train_step)
+    model = init_params(cfg, seed=0, device=dev)
+    pipe = TokenPipeline(cfg.vocab, LT_SEQ, LT_BATCH, seed=0, device=dev)
+    loop = TrainLoopConfig(total_steps=100, warmup_steps=10, peak_lr=3e-4)
+    opt_state = adamw_init(dict(model.named_parameters()), AdamWConfig(),
+                           stacked_layers(model))
+    step_fn = make_train_step(cfg, AdamWConfig(), loop)
+    losses, walls, per_step = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    for step in range(steps):
+        before = common.launches["loghd_head"]
+        t0 = time.perf_counter()
+        _, _, loss = step_fn(model, opt_state, pipe.batch(step), step)
+        losses.append(loss.item())
+        walls.append(time.perf_counter() - t0)
+        per_step.append(common.launches["loghd_head"] - before)
+    return dict(model=model, opt_state=opt_state, step_fn=step_fn, pipe=pipe,
+                losses=losses, walls=walls, per_step=per_step,
+                launches=dict(common.launches),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def check_grads_nonzero(torch, dev, cfg) -> None:
+    """Every parameter of a fresh full-width model gets a finite, nonzero
+    gradient from the loss of the pipeline's first batch (the LogHD head's
+    through ``loghd_head``'s autograd Function on the card)."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model import init_params, loss_fn
+    model = init_params(cfg, seed=0, device=dev)
+    batch = TokenPipeline(cfg.vocab, LT_SEQ, LT_BATCH, seed=0,
+                          device=dev).batch(0)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss_fn(model, cfg, batch["tokens"],
+                                        batch["targets"]),
+                                list(params.values()))
+    zero = [n for n, gr in zip(params, grads)
+            if not (bool(torch.isfinite(gr).all()) and bool(gr.any()))]
+    log(f"LM {cfg.name} head {cfg.head}: {len(params) - len(zero)} of "
+        f"{len(params)} parameters have a finite nonzero gradient")
+    check(not zero, f"{cfg.head} head: zero or non-finite gradients on "
+          f"{zero[:8]} ({len(zero)} of {len(params)} parameters)")
+
+
+def train_head(torch, dev, cfg, steps: int = LT_STEPS) -> dict:
+    """`steps` training steps of `cfg` (``train_losses``): finite losses,
+    exactly one ``loghd_head`` launch a step under the loghd head and none
+    under the dense one; then the step's walls, peak memory and time
+    shares.  The caller judges the losses' course."""
+    import math
+    check_grads_nonzero(torch, dev, cfg)
+    r = train_losses(torch, dev, cfg, steps)
+    model, losses, launches = r["model"], r["losses"], r["launches"]
+    n_params = sum(p.numel() for p in model.parameters())
+    want = 1 if cfg.head == "loghd" else 0
+    log(f"LM train {cfg.name} head {cfg.head} ({n_params} parameters, "
+        f"{cfg.dtype}, remat {cfg.remat_policy}, batch {LT_BATCH} x "
+        f"{LT_SEQ}): losses " + " ".join(f"{x:.4f}" for x in losses))
+    check(all(math.isfinite(x) for x in losses),
+          f"{cfg.head} head: a loss is not finite: {losses}")
+    check(all(c == want for c in r["per_step"]),
+          f"{cfg.head} head: loghd_head launches a step {r['per_step']}, "
+          f"not {want} each")
+    check(sum(launches.values()) == want * steps,
+          f"{cfg.head} head: kernels launched on the training path: "
+          f"{launches}")
+    step_ms = statistics.median(r["walls"]) * 1e3
+    t = train_step_times(torch, cfg, model, r["opt_state"], r["step_fn"],
+                         r["pipe"], steps)
+    log(f"  step wall {step_ms:.2f} ms (median of {steps}), "
+        f"{LT_BATCH * LT_SEQ / step_ms * 1e3:.0f} tokens/s, peak allocated "
+        f"{r['peak']} B; one profiled step: {t['profiled_busy_ms']:.2f} ms "
+        f"of device work in its wall of {t['profiled_wall_ms']:.2f} ms, "
+        f"{t['kernels_per_step']:.0f} kernels and copies, idle "
+        f"{1 - t['profiled_busy_ms'] / t['profiled_wall_ms']:.1%}; "
+        f"optimizer alone "
+        f"{t['opt_ms']:.2f} ms ({t['opt_ms'] / step_ms:.1%} of the step), "
+        f"head forward + backward {t['head_ms']:.3f} ms "
+        f"({t['head_ms'] / step_ms:.1%}); launches {launches}")
+    for ms, cnt, key in t["top"][:10]:
+        log(f"  {ms:9.3f} ms  {cnt:6.1f}x  {key[:90]}")
+    return dict(model=model, losses=losses, launches=launches,
+                step_ms=step_ms, peak_bytes=r["peak"], n_params=n_params,
+                **{k: v for k, v in t.items() if k != "top"})
+
+
+def plain_head_losses(torch, dev, cfg, steps: int = LT_STEPS) -> list:
+    """The same `steps` steps of the loghd head with the head through its
+    plain version on the card (autograd through ``loghd_head_logits_ref``,
+    no launch): the losses the kernel route is held against."""
+    from repro_torch.api import dispatch
+    from repro_torch.kernels.loghd_head import loghd_head_logits_ref
+    from repro_torch.kernels import common
+    real = dispatch.loghd_head_autograd
+    dispatch.loghd_head_autograd = loghd_head_logits_ref
+    try:
+        r = train_losses(torch, dev, cfg, steps)
+    finally:
+        dispatch.loghd_head_autograd = real
+    check(not r["launches"], f"plain-head run launched {r['launches']}")
+    del r["model"], r["opt_state"]
+    return r["losses"]
+
+
+def check_chunked(torch, dev, cfg, model) -> dict:
+    """One gradient step at (B, S) = LT_CHUNKED with cfg.loss_chunk = 512:
+    exactly 4 ``loghd_head`` launches (two chunks, a forward and a
+    recomputation each), the loss within LT_CHUNK_RTOL of loss_chunk=0."""
+    import dataclasses
+
+    from repro_torch.kernels import common
+    from repro_torch.models.model import loss_fn
+    b, s = LT_CHUNKED
+    check(cfg.loss_chunk and s % cfg.loss_chunk == 0 and s > cfg.loss_chunk,
+          f"chunked CE needs S = {s} a multiple above loss_chunk "
+          f"{cfg.loss_chunk}")
+    g = torch.Generator(device=dev).manual_seed(4)
+    tok = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+    tgt = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev)
+    common.reset_launches()
+    loss = loss_fn(model, cfg, tok, tgt)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    launches = dict(common.launches)
+    del grads
+    with torch.no_grad():
+        whole = loss_fn(model, dataclasses.replace(cfg, loss_chunk=0), tok,
+                        tgt)
+    rel = abs(loss.item() - whole.item()) / abs(whole.item())
+    log(f"LM chunked CE at (B, S) = {LT_CHUNKED}, chunk {cfg.loss_chunk}: "
+        f"loss {loss.item():.6f} against {whole.item():.6f} unchunked "
+        f"(relative {rel:.2e}, bound {LT_CHUNK_RTOL}); launches {launches}")
+    check(rel <= LT_CHUNK_RTOL, f"chunked CE loss {rel:.2e} from unchunked")
+    check(launches == {"loghd_head": 4},
+          f"chunked CE step launched {launches}, not loghd_head 4 times")
+    return dict(launches=launches, rel=rel)
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def check_entry_point(torch, dev, cfg) -> dict:
+    """``run_training`` at full width with int8 moments for 3 steps into
+    TRAIN_CKPT_DIR: its final checkpoint's bytes and write time (the
+    AsyncCheckpointer's save to its wait), free disk before; the directory
+    removed after."""
+    import math
+
+    from repro_torch.kernels import common
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import train_loop
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    TRAIN_CKPT_DIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(TRAIN_CKPT_DIR.parent).free
+    marks = {}
+    real = train_loop.AsyncCheckpointer
+
+    class Timed(real):
+        def save(self, step, tree):
+            marks["save"] = time.perf_counter()
+            super().save(step, tree)
+            marks["host"] = time.perf_counter()
+
+        def wait(self):
+            super().wait()
+            marks["done"] = time.perf_counter()
+
+    train_loop.AsyncCheckpointer = Timed
+    try:
+        common.reset_launches()
+        t0 = time.perf_counter()
+        out = train_loop.run_training(
+            cfg, loop=train_loop.TrainLoopConfig(
+                total_steps=3, ckpt_dir=str(TRAIN_CKPT_DIR), ckpt_every=50),
+            opt_cfg=AdamWConfig(moment_dtype="int8"), device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        train_loop.AsyncCheckpointer = real
+    launches = dict(common.launches)
+    written = dir_bytes(TRAIN_CKPT_DIR)
+    files = sum(1 for f in TRAIN_CKPT_DIR.rglob("*") if f.is_file())
+    log(f"LM run_training {cfg.name} head {cfg.head}, int8 moments, 3 steps:"
+        f" losses {out['losses']}; {wall:.2f} s in all; free disk before "
+        f"{free} B; checkpoint {written} B in {files} files, host copy "
+        f"{marks['host'] - marks['save']:.2f} s, written by "
+        f"{marks['done'] - marks['save']:.2f} s after save(); launches "
+        f"{launches}")
+    del out
+    shutil.rmtree(TRAIN_CKPT_DIR)
+    check(not TRAIN_CKPT_DIR.exists(), "training checkpoint not removed")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, bytes=written, free=free, wall_s=wall,
+                write_s=marks["done"] - marks["save"])
+
+
+def check_restart(torch, dev, cfg) -> dict:
+    """``cfg`` at n_periods = 2, int8 moments: 6 steps straight against 3,
+    a stop (checkpoint) and a resume for 3; the resumed losses equal the
+    straight run's bit for bit, or, where a repeat of the first 3 steps
+    shows that the card's backward is not repeatable, within
+    LT_RESUME_RTOL."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.kernels import common
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+    cfg = dataclasses.replace(cfg, n_periods=2)
+    opt = AdamWConfig(moment_dtype="int8")
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    common.reset_launches()
+    t0 = time.perf_counter()
+
+    def run(name, **kw):
+        loop = TrainLoopConfig(total_steps=6, warmup_steps=2, ckpt_every=100,
+                               ckpt_dir=str(TRAIN_CKPT_DIR / name))
+        return run_training(cfg, loop=loop, opt_cfg=opt, device=dev, **kw)
+    straight = run("straight")["losses"]
+    first = run("stopped", stop_after=3)["losses"]
+    resumed = run("stopped")
+    launches = dict(common.launches)
+    check(resumed["resumed"] and resumed["first_step"] == 3,
+          "restart: the second run did not resume at step 3")
+    got = first + resumed["losses"]
+    bitwise = got == straight
+    rel = float(np.abs(np.array(got) - straight).max()
+                / np.abs(straight).max())
+    repeatable = None
+    if not bitwise:
+        repeatable = run("repeat", stop_after=3)["losses"] == straight[:3]
+    shutil.rmtree(TRAIN_CKPT_DIR)
+    log(f"LM restart {cfg.name} x 2 periods head {cfg.head}: straight "
+        f"{straight}; stopped + resumed {first} + {resumed['losses']}; "
+        f"bitwise {bitwise}, max relative difference {rel:.2e}"
+        + ("" if bitwise else f"; a repeat of the first 3 steps equal: "
+           f"{repeatable}") + f"; {time.perf_counter() - t0:.2f} s; "
+        f"launches {launches}")
+    if not bitwise:
+        check(not repeatable and rel <= LT_RESUME_RTOL,
+              f"restart: resumed losses differ ({rel:.2e}) though the "
+              f"first 3 steps repeat bitwise ({repeatable})")
+    return dict(launches=launches, bitwise=bitwise, rel=rel,
+                repeatable=repeatable)
+
+
+def phase_lm_train(torch, dev, cfg=None) -> dict:
+    """LM training at full width (qwen3-1.7b, bf16, remat "full"): the
+    head's gradient, both heads through ``make_train_step`` at the CLI's
+    defaults, the chunked CE, ``run_training`` with int8 moments and a
+    checkpoint, and restart exactness.
+
+    The losses' course: under the dense head the last five losses average
+    below the first.  Under the loghd head they rise at these settings, in
+    the JAX package too: ``tests/test_torch_lm_loss_course.py`` runs both
+    packages from the same weights on the same batches at this width with
+    one layer, and both rise alike.  So the kernel route is held against
+    the plain route on the card, step by step, within LT_PLAIN_ATOL."""
+    import dataclasses
+    cfg = cfg or lm_config()
+    t_phase = time.perf_counter()
+    marks = [("start", t_phase)]
+    out = {"grad": check_head_grad(torch, dev)}
+    marks.append(("gradient", time.perf_counter()))
+    for head in ("loghd", "dense"):
+        r = train_head(torch, dev, dataclasses.replace(cfg, head=head))
+        marks.append((f"train {head}", time.perf_counter()))
+        if head == "loghd":
+            out["chunked"] = check_chunked(torch, dev, cfg, r["model"])
+            marks.append(("chunked", time.perf_counter()))
+        del r["model"]
+        torch.cuda.empty_cache()
+        out[head] = r
+        if head == "loghd":
+            plain = plain_head_losses(torch, dev, cfg)
+            diff = max(abs(a - b) for a, b in zip(r["losses"], plain))
+            log(f"LM train loghd head through the plain version: losses "
+                + " ".join(f"{x:.4f}" for x in plain)
+                + f"; largest difference from the kernel route {diff:.2e} "
+                f"(bound {LT_PLAIN_ATOL})")
+            check(diff <= LT_PLAIN_ATOL, f"loghd head: kernel-route losses "
+                  f"{diff:.2e} from the plain route's")
+            r["plain_diff"] = diff
+            marks.append(("plain loghd", time.perf_counter()))
+            torch.cuda.empty_cache()
+        else:
+            last5 = statistics.mean(r["losses"][-5:])
+            check(last5 < r["losses"][0],
+                  f"{head} head: the last five losses average {last5:.4f}, "
+                  f"not below the first {r['losses'][0]:.4f}")
+    out["entry"] = check_entry_point(torch, dev, cfg)
+    marks.append(("run_training", time.perf_counter()))
+    out["restart"] = check_restart(torch, dev, cfg)
+    marks.append(("restart", time.perf_counter()))
+    lh, de = out["loghd"], out["dense"]
+    log(f"LM train shares, loghd against dense: optimizer "
+        f"{lh['opt_ms'] / lh['step_ms']:.1%} / {de['opt_ms'] / de['step_ms']:.1%}"
+        f" of the step, head {lh['head_ms'] / lh['step_ms']:.1%} / "
+        f"{de['head_ms'] / de['step_ms']:.1%}; steps {lh['step_ms']:.2f} / "
+        f"{de['step_ms']:.2f} ms; the phase {time.perf_counter() - t_phase:.1f}"
+        f" s (" + ", ".join(f"{name} {t - marks[i][1]:.1f} s" for i, (name, t)
+                            in enumerate(marks[1:])) + ")")
+    return out
+
+
 def phase_fit_profile(torch, mm: dict) -> dict:
     """Where the LogHD fit's time goes: one Eq. 9 epoch (98 minibatch
     steps) on the host clock and on the device (torch.profiler), the
@@ -2318,7 +2798,8 @@ def time_lm_head(torch, lm: dict, rates: dict) -> dict:
     """loghd_head, its plain version and the library form on the served
     LM's bf16 bundles and bf16 hidden states, with its bf16 profiles and
     their float32 cast, at the decode step (B = 4; with bf16 profiles, the
-    row of the kernels line) and at a 512-row prefill: CUDA-event time per
+    row of the kernels line) and at a 512-row prefill, and with the bf16
+    profiles at the training step's 1,024 rows: CUDA-event time per
     eager call, profiler device time (the two kernels' durations summed,
     the score stage's wait for A included), and the span of a call in a
     CUDA graph with the score stage chained by PDL and without."""
@@ -2331,9 +2812,12 @@ def time_lm_head(torch, lm: dict, rates: dict) -> dict:
     g = torch.Generator(device=m.device).manual_seed(5)
     (n, d), v = m.shape, p16.shape[0]
     rows, first = [], None
-    for b in (4, 512):
+    # the decode step and a prefill with bf16 and float32 profiles, and the
+    # training step's rows (LT_SHAPE) with the bf16 profiles it trains
+    for b, ps in ((4, (p16, p16.float())), (512, (p16, p16.float())),
+                  (LT_SHAPE[0], (p16,))):
         h = torch.randn((b, d), generator=g, device=m.device).to(m.dtype)
-        for p in (p16, p16.float()):
+        for p in ps:
             def library(h=h, p=p):
                 a = h.float() @ m.float().T
                 pf = p.float()
@@ -2347,7 +2831,7 @@ def time_lm_head(torch, lm: dict, rates: dict) -> dict:
                      "library": library}
             t = {role: (time_ms(torch, fn), device_ms(torch, fn))
                  for role, fn in roles.items()}
-            copies = 20 if b <= 64 else 4
+            copies = 20 if b <= 64 else 4 if b <= 512 else 2
             span = graph_span_ms(torch, kernel, copies=copies)
             with common.pdl(False):
                 span_off = graph_span_ms(torch, kernel, copies=copies)
@@ -2769,6 +3253,7 @@ def main() -> int:
     serve = phase_serving(torch, dev, main_run, mm)
     phase_fit_profile(torch, mm)
     lm = phase_lm(torch, dev)
+    lm_train = phase_lm_train(torch, dev)
     times = phase_times(torch, main_run, mm, lm, rates)
 
     # launches of every path's run: slice 1's LogHD path, the shared
@@ -2784,6 +3269,14 @@ def main() -> int:
     by_path["serve"] = serve["launches"]
     by_path.update({f"lm_serve_{head}": lm[head]["launches"]
                     for head in ("loghd", "dense")})
+    # the LM training runs: LT_STEPS steps under each head, the chunked-CE
+    # step, and the entry point's runs (run_training, restart)
+    by_path.update({f"lm_train_{head}": lm_train[head]["launches"]
+                    for head in ("loghd", "dense")})
+    by_path["lm_train_chunked"] = lm_train["chunked"]["launches"]
+    by_path["lm_train_run_training"] = dict(collections.Counter(
+        lm_train["entry"]["launches"])
+        + collections.Counter(lm_train["restart"]["launches"]))
     # bundle_sim's launches of each path, in serving buckets (at most
     # MAX_BATCH rows) and in larger batches
     none = {"bucket": 0, "full": 0}
@@ -2795,6 +3288,7 @@ def main() -> int:
     bs_batches["extreme"] = none
     bs_batches["serve"] = serve["bs_batches"]
     bs_batches.update({f"lm_serve_{head}": none for head in ("loghd", "dense")})
+    bs_batches.update({p: none for p in by_path if p.startswith("lm_train")})
     for p, c in bs_batches.items():
         check(c["bucket"] + c["full"] == by_path[p].get("bundle_sim", 0),
               f"{p}: bundle_sim batches {c} do not sum to its launches")

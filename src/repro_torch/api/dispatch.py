@@ -7,7 +7,8 @@ hybrid); the argmax stays in torch.  Everything else (CPU tensors, the cos
 and maha metrics) takes the model's own plain-torch ``predict_encoded``.
 Training: ``fused_bundle_update`` is the minibatch step of the fit engine,
 through ``bundle_update``.  LM head: ``loghd_head_scores`` is the
-decoder LM's LogHD vocab head, through ``loghd_head``.  Corrupt: the
+decoder LM's LogHD vocab head, through ``loghd_head``, differentiable for
+LM training.  Corrupt: the
 QTensor leaves of a model at a chunk of grid points go through one
 ``flip_corrupt_grid`` call (the kernel for CUDA tensors, its bit-exact
 plain version for CPU tensors), under the default iid model; the other
@@ -36,7 +37,7 @@ from repro_torch.kernels.bundle_sim.ops import bundle_similarity
 from repro_torch.kernels.bundle_update.ops import bundle_update
 from repro_torch.kernels.bundle_update.ref import bundle_update_ref
 from repro_torch.kernels.flip_corrupt.ops import flip_corrupt_grid
-from repro_torch.kernels.loghd_head.ops import loghd_head_logits
+from repro_torch.kernels.loghd_head.ops import loghd_head_autograd
 from repro_torch.kernels.profile_decode.ops import profile_decode_scores
 from repro_torch.precision import full_f32
 
@@ -105,9 +106,17 @@ def loghd_head_scores(x: torch.Tensor, bundles: torch.Tensor,
     """LogHD LM-head logits -||x M^T - P_v||^2: (..., D) -> (..., V) f32.
 
     Every call goes through ``loghd_head``: the kernel for CUDA tensors (or
-    an error), its plain version for CPU tensors.  The reference casts the
-    profiles to float32 here; ``loghd_head`` widens them itself (exactly),
-    so the stored profiles pass as they are.
+    an error), its plain version for CPU tensors; one launch a call.  The
+    reference casts the profiles to float32 here; ``loghd_head`` widens
+    them itself (exactly), so the stored profiles pass as they are.
+
+    Gradients: with grad mode on and an input requiring one (training),
+    the call is ``loghd_head_autograd``, whose backward runs float32 torch
+    ops on the (rows, n) activations the forward kept, on both routes, as
+    ``jax.grad`` differentiates the jnp expansion in the reference; a
+    training step therefore launches the kernel once per forward (and once
+    more per recomputation under a checkpoint).  Under ``no_grad``
+    (serving, ``decode_step``) nothing is kept.
 
     Unlike the reference's jnp branch, which rounds ``x @ bundles.T`` to
     the inputs' dtype before widening, both routes widen x and the bundles
@@ -115,7 +124,8 @@ def loghd_head_scores(x: torch.Tensor, bundles: torch.Tensor,
     kernel's, not the JAX package's CPU path's."""
     lead = x.shape[:-1]
     h = x.reshape(-1, x.shape[-1]).contiguous()
-    out = loghd_head_logits(h, bundles.contiguous(), profiles.contiguous())
+    out = loghd_head_autograd(h, bundles.contiguous(),
+                              profiles.contiguous())
     return out.reshape(*lead, profiles.shape[0])
 
 

@@ -25,9 +25,16 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import dequantize_tree
 from repro_torch.precision import full_f32
 
 INT32_MAX = (1 << 31) - 1
+
+
+def materialize(model):
+    """Dequantize any QTensor leaves of a tree or typed model back to
+    float32 for inference."""
+    return dequantize_tree(model)
 
 
 def trial_seeds(generator: torch.Generator, n_trials: int,

@@ -51,6 +51,16 @@ def memory_bits(n_classes: int, dim: int, n_bundles: int, bits: int,
     return n_bundles * dim * bits + n_classes * n_bundles * pb
 
 
+def conventional_memory_bits(n_classes: int, dim: int, bits: int) -> int:
+    """Baseline storage C * D * bits: the denominator of every budget
+    fraction.
+
+    >>> conventional_memory_bits(26, 10_000, 1)
+    260000
+    """
+    return n_classes * dim * bits
+
+
 def max_bundles_for_budget(budget_fraction: float, n_classes: int, dim: int,
                            k: int, *, strict: bool = True) -> int:
     """Largest n with  n*D + C*n  <=  x * C * D, floored at ceil(log_k C)

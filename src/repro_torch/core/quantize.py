@@ -134,3 +134,31 @@ def quantize_tree(tree: dict, bits: int, *, skip=()) -> dict:
         else:
             out[name] = quantize(leaf, bits)
     return out
+
+
+def dequantize_tree(tree):
+    """Every QTensor of a tree (dicts, lists, tuples, typed models) back to
+    float32; other leaves pass through, as ``jax.tree.map`` with QTensor as
+    a leaf does in the reference."""
+    if isinstance(tree, QTensor):
+        return dequantize(tree)
+    if isinstance(tree, dict):
+        return {k: dequantize_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(dequantize_tree(v) for v in tree)
+    aux = getattr(tree, "aux_fields", None)
+    if aux is not None and dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: dequantize_tree(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.name not in aux})
+    return tree
+
+
+def quantization_mse(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """Round-trip error mean((w - dequantize(quantize(w, bits)))^2), a
+    float32 scalar on w's device; the mean is taken on the host as the
+    reference's is (``xla_sum`` times float32(1/N))."""
+    w = w.to(torch.float32)
+    d = (w - dequantize(quantize(w, bits))).detach().cpu().numpy()
+    mse = np.float32(xla_sum(d * d) * np.float32(1.0 / d.size))
+    return torch.tensor(mse, device=w.device)

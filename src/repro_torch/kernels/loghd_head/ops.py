@@ -16,6 +16,13 @@ profiles to float32 (``repro.api.dispatch.loghd_head_scores``) without
 materialising that cast; ``chip_smoke.py`` compares both forms on the card.
 The (B, n) activations A live in the same allocation as the logits, behind
 them: one ``torch.empty`` a call.
+
+Training: ``loghd_head_autograd`` is the same call made differentiable, a
+``torch.autograd.Function`` whose forward is this wrapper (one launch on
+the card) and whose backward is float32 torch ops on the A that the
+forward kept.  The JAX package has no backward kernel: ``jax.grad``
+differentiates the jnp expansion around the Pallas call, so the products
+of the backward are ``torch.matmul`` here as they are XLA's there.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, common, score_stage
-from repro_torch.kernels.loghd_head.ref import loghd_head_logits_ref
+from repro_torch.kernels.loghd_head.ref import loghd_head_parts_ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -113,26 +120,80 @@ def _check(h: torch.Tensor, m: torch.Tensor, p: torch.Tensor) -> None:
                          f"rows, not {b}")
 
 
-def loghd_head_logits(h: torch.Tensor, m: torch.Tensor,
-                      p: torch.Tensor) -> torch.Tensor:
-    """Fused LogHD vocab head: (B, D), (n, D), (V, n) -> (B, V) float32."""
+def _head(h: torch.Tensor, m: torch.Tensor, p: torch.Tensor) -> tuple:
+    """(logits (B, V), A (B, n)), both float32: the kernel for CUDA
+    tensors, the plain version for CPU tensors.  On the card A is the
+    kernel's own scratch, a view behind the logits in one buffer."""
     _check(h, m, p)
     if not common.on_card(h, m, p):
-        return loghd_head_logits_ref(h, m, p)
+        return loghd_head_parts_ref(h, m, p)
     (b, d), n, v = h.shape, m.shape[0], p.shape[0]
     if b == 0 or v == 0:
-        return torch.empty((b, v), dtype=torch.float32, device=h.device)
+        return (torch.empty((b, v), dtype=torch.float32, device=h.device),
+                torch.zeros((b, n), dtype=torch.float32, device=h.device))
     p_bf16 = p.dtype == torch.bfloat16
     index = h.device.index
     args = _launch_args(torch.cuda.current_device() if index is None
                         else index, b, d, n, v, p_bf16)
     buf = torch.empty(b * v + b * n, dtype=torch.float32, device=h.device)
     out = buf[:b * v].view(b, v)
+    acts = buf[b * v:].view(b, n)
     rc = _lib().loghd_head_launch(
-        h.data_ptr(), m.data_ptr(), p.data_ptr(), buf[b * v:].data_ptr(),
+        h.data_ptr(), m.data_ptr(), p.data_ptr(), acts.data_ptr(),
         out.data_ptr(), b, d, n, v, int(h.dtype == torch.bfloat16),
         int(m.dtype == torch.bfloat16), int(p_bf16), *args,
         int(common.pdl_enabled()), common.stream_of(h))
     common.check_launch(rc, "loghd_head")
     common.launches["loghd_head"] += 1
-    return out
+    return out, acts
+
+
+def loghd_head_logits(h: torch.Tensor, m: torch.Tensor,
+                      p: torch.Tensor) -> torch.Tensor:
+    """Fused LogHD vocab head: (B, D), (n, D), (V, n) -> (B, V) float32."""
+    return _head(h, m, p)[0]
+
+
+class _HeadFn(torch.autograd.Function):
+    """The head with its gradient.  With g = dL/dlogits (B, V) and the
+    logits 2 A P^T - ||P_v||^2 - ||A_b||^2, A = h M^T:
+    dA = 2 g P - 2 (sum_v g) A,  dP = 2 g^T A - 2 (sum_b g) P,
+    dh = dA M,  dM = dA^T h; each in float32, cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, h, m, p):
+        out, acts = _head(h, m, p)
+        # a copy, not a view: a view would keep the (B, V) logits buffer
+        # alive until the backward
+        ctx.save_for_backward(h, m, p, acts.clone())
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, m, p, a = ctx.saved_tensors
+        need_h, need_m, need_p = ctx.needs_input_grad
+        g = g.float()
+        pf = p.float()
+        dh = dm = dp = None
+        if need_h or need_m:
+            da = 2.0 * (g @ pf) - 2.0 * g.sum(dim=1, keepdim=True) * a
+            if need_h:
+                dh = (da @ m.float()).to(h.dtype)
+            if need_m:
+                dm = (da.T @ h.float()).to(m.dtype)
+        if need_p:
+            dp = (2.0 * (g.T @ a)
+                  - 2.0 * g.sum(dim=0)[:, None] * pf).to(p.dtype)
+        return dh, dm, dp
+
+
+def loghd_head_autograd(h: torch.Tensor, m: torch.Tensor,
+                        p: torch.Tensor) -> torch.Tensor:
+    """``loghd_head_logits`` that autograd differentiates: the same one
+    launch forward (the plain version for CPU tensors), and the backward of
+    ``_HeadFn`` when grad mode is on and an input requires a gradient;
+    otherwise the plain call, which keeps nothing for a backward."""
+    if torch.is_grad_enabled() and (h.requires_grad or m.requires_grad
+                                    or p.requires_grad):
+        return _HeadFn.apply(h, m, p)
+    return loghd_head_logits(h, m, p)

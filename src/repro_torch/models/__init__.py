@@ -3,4 +3,5 @@ mixers and the dense ffn): ``layers``, ``attention``, ``model``, and
 ``convert``, the weight exchange with the JAX package."""
 
 from repro_torch.models.model import (DecoderLM, Model, decode_step, forward,
-                                      init_decode_state, init_params, prefill)
+                                      init_decode_state, init_params, loss_fn,
+                                      prefill)

@@ -10,7 +10,8 @@ activations' dtype cast to float32, scaled, masked with ``NEG_INF``,
 softmaxed in float32, and the probabilities cast to the value dtype before
 the PV product.  Einsums, not ``scaled_dot_product_attention``, whose
 masking and precision differ.  Queries are processed in chunks of
-``ATTN_CHUNK`` rows, as the reference bounds its (B, H, chunk, T) logits.
+``ATTN_CHUNK`` rows, as the reference bounds its (B, H, chunk, T) logits,
+each chunk recomputed in the backward when autograd records.
 
 The decode cache is updated in place: a step writes its token's k and v
 into the cache tensors it is given (the reference returns a new cache).
@@ -24,6 +25,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import norm_scale, normal_, rms_norm, rotate
 
@@ -77,6 +79,15 @@ def _sdpa(q, k, v, scale: float, *, causal: bool = True,
     else:
         if s % chunk:
             raise ValueError(f"seq {s} must be a multiple of {chunk}")
+        if torch.is_grad_enabled():
+            # recompute each chunk in the backward, as the reference's
+            # checkpointed scan does: otherwise autograd keeps every
+            # chunk's (B, H, chunk, T) logits and probabilities
+            plain = attend
+
+            def attend(qc, qpos):
+                return checkpoint(plain, qc, qpos, use_reentrant=False,
+                                  preserve_rng_state=False)
         out = torch.cat([
             attend(q[:, c:c + chunk], torch.arange(c, c + chunk,
                                                    device=q.device))

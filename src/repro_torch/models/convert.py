@@ -1,4 +1,5 @@
-"""Carry decoder-LM weights between the JAX package and the port.
+"""Carry decoder-LM weights and optimizer state between the JAX package and
+the port.
 
 The exchange format is the reference's parameter tree with numpy leaves
 (``jax.tree.map(np.asarray, params)``): ``{"embed": {"table"},
@@ -9,6 +10,13 @@ stacked over repetitions / periods on the first axis.  A block's subtree
 port's ``Block`` parameters.  Neither direction imports JAX; bfloat16
 leaves (ml_dtypes arrays) are read through their bits, and come back as
 float32 arrays, which widen bf16 exactly.
+
+``stack_tree`` / ``unstack_tree`` map any per-parameter values (a tensor,
+a ``{"codes", "scale"}`` moment, a ``LeafSpec``) to that stacked layout
+and back; ``opt_state_to_reference`` / ``opt_state_from_reference`` carry
+the AdamW state (``{"step", "mu", "nu"}``, int8 moments as ``{"codes",
+"scale"}``), and ``train_state`` gives the ``{"params", "opt"}`` tree that
+the training loops of both packages checkpoint.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import LeafSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.model import DecoderLM
@@ -43,11 +52,82 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _set(tree: dict, key: str, value) -> None:
-    *path, last = key.split(".")
-    for k in path:
-        tree = tree.setdefault(k, {})
-    tree[last] = value
+def _locate(name: str) -> tuple:
+    """A port parameter name's place in the reference tree: (path, layer),
+    e.g. "body.0.3.attn.wq" -> (("body", 0, "attn", "wq"), 3) and
+    "embed.table" -> (("embed", "table"), None)."""
+    parts = name.split(".")
+    if parts[0] in _STACKED:
+        return (parts[0], int(parts[1]), *parts[3:]), int(parts[2])
+    return tuple(parts), None
+
+
+def stacked_layers(model: DecoderLM) -> dict:
+    """Parameter name -> the number of layers the reference stacks it with
+    (1 for the unstacked embedding, norm and head)."""
+    return {name: (1 if layer is None else
+                   len(getattr(model, path[0])[path[1]]))
+            for name, _ in model.named_parameters()
+            for path, layer in [_locate(name)]}
+
+
+def _stack(leaves: list):
+    first = leaves[0]
+    if isinstance(first, dict):
+        return {k: _stack([leaf[k] for leaf in leaves]) for k in first}
+    if isinstance(first, LeafSpec):
+        return LeafSpec((len(leaves), *first.shape), first.dtype)
+    if isinstance(first, torch.Tensor):
+        return torch.stack(leaves)
+    return np.stack(leaves)
+
+
+def _index(leaf, i: int):
+    if isinstance(leaf, dict):
+        return {k: _index(v, i) for k, v in leaf.items()}
+    return leaf[i]
+
+
+def stack_tree(named: dict, model: DecoderLM) -> dict:
+    """Per-parameter values of `model` (name -> value; a value is a tensor,
+    a numpy array, a ``LeafSpec`` or a dict of them) as the reference's
+    tree, each prefix / body position's layers stacked on a new first
+    axis."""
+    groups: dict = {}
+    for name, value in named.items():
+        path, layer = _locate(name)
+        groups.setdefault(path, []).append((layer, value))
+    tree: dict = {}
+    for stack in _STACKED:
+        if len(getattr(model, stack)):
+            tree[stack] = [{} for _ in getattr(model, stack)]
+    for path, items in groups.items():
+        if items[0][0] is None:
+            value = items[0][1]
+        else:
+            value = _stack([v for _, v in sorted(items, key=lambda t: t[0])])
+        node = tree
+        for k in path[:-1]:
+            node = node[k] if isinstance(k, int) else node.setdefault(k, {})
+        node[path[-1]] = value
+    return tree
+
+
+def unstack_tree(tree: dict, model: DecoderLM) -> dict:
+    """The inverse of ``stack_tree``: parameter name -> that parameter's
+    value (a stacked leaf's slice; views of the tree's arrays).  Raises
+    KeyError naming a parameter the tree lacks."""
+    out = {}
+    for name, _ in model.named_parameters():
+        path, layer = _locate(name)
+        node = tree
+        try:
+            for k in path:
+                node = node[k]
+        except (KeyError, IndexError) as e:
+            raise KeyError(f"the reference tree lacks {name}") from e
+        out[name] = node if layer is None else _index(node, layer)
+    return out
 
 
 @torch.no_grad()
@@ -57,25 +137,20 @@ def from_reference(tree: dict, cfg: ModelConfig, device=None) -> DecoderLM:
     Raises if a leaf is missing, foreign or of another shape."""
     model = DecoderLM(cfg, device=resolve_device(device))
     params = dict(model.named_parameters())
-    seen = set()
-    for key, leaf in _flatten(tree).items():
-        t = _tensor(leaf)
-        if key.split(".")[0] in _STACKED:       # one name per stacked layer
-            stack, pos, name = key.split(".", 2)
-            pairs = [(f"{stack}.{pos}.{i}.{name}", t[i])
-                     for i in range(t.shape[0])]
-        else:
-            pairs = [(key, t)]
-        for name, part in pairs:
-            p = params.get(name)
-            if p is None or p.shape != part.shape:
-                raise ValueError(f"reference leaf {key} {tuple(t.shape)} has "
-                                 f"no port parameter {name}")
-            p.copy_(part)
-            seen.add(name)
-    missing = sorted(set(params) - seen)
-    if missing:
-        raise ValueError(f"the reference tree lacks {missing}")
+    known = {".".join(map(str, _locate(n)[0])) for n in params}
+    foreign = sorted(set(_flatten(tree)) - known)
+    if foreign:
+        raise ValueError(f"reference leaves {foreign} have no port parameter")
+    try:
+        values = unstack_tree(tree, model)
+    except KeyError as e:
+        raise ValueError(f"the reference tree lacks {e.args[0].split()[-1]}")
+    for name, p in params.items():
+        t = _tensor(values[name])
+        if p.shape != t.shape:
+            raise ValueError(f"reference leaf for {name} {tuple(t.shape)} "
+                             f"does not fit the port's {tuple(p.shape)}")
+        p.copy_(t)
     return model
 
 
@@ -86,19 +161,77 @@ def to_reference(model: DecoderLM) -> dict:
     def leaf(p: torch.Tensor) -> np.ndarray:
         p = p.detach().cpu()
         return (p.float() if p.dtype == torch.bfloat16 else p).numpy()
+    return stack_tree({n: leaf(p) for n, p in model.named_parameters()},
+                      model)
 
-    def stacked(layers) -> dict:
-        out: dict = {}
-        for name, _ in layers[0].named_parameters():
-            _set(out, name, np.stack([leaf(blk.get_parameter(name))
-                                      for blk in layers]))
-        return out
 
-    tree: dict = {}
+def _map(fn, value):
+    if isinstance(value, dict):
+        return {k: _map(fn, v) for k, v in value.items()}
+    return fn(value)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu()
+
+
+def _spec(t: torch.Tensor) -> LeafSpec:
+    return LeafSpec(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+
+
+def _opt_tree(opt_state: dict, model: DecoderLM, leaf) -> dict:
+    step = torch.tensor(opt_state["step"], dtype=torch.int32)
+    return {"step": leaf(step),
+            "mu": stack_tree({n: _map(leaf, v) for n, v in
+                              opt_state["mu"].items()}, model),
+            "nu": stack_tree({n: _map(leaf, v) for n, v in
+                              opt_state["nu"].items()}, model)}
+
+
+def opt_state_to_reference(opt_state: dict, model: DecoderLM) -> dict:
+    """The port's AdamW state as the reference's ``{"step": int32 (),
+    "mu": tree, "nu": tree}``, each moment stacked as the parameters are
+    (int8 moments as ``{"codes", "scale"}``), on the host."""
+    return _opt_tree(opt_state, model, _host)
+
+
+def _to(value, device):
+    if isinstance(value, dict):
+        return {k: _to(v, device) for k, v in value.items()}
+    return _tensor(value).to(device) if not isinstance(
+        value, torch.Tensor) else value.to(device)
+
+
+def opt_state_from_reference(tree: dict, model: DecoderLM) -> dict:
+    """The reference's AdamW state (tensors or numpy arrays) as the port's,
+    each moment on its parameter's device."""
+    devices = {n: p.device for n, p in model.named_parameters()}
+
+    def moments(key):
+        return {n: _to(v, devices[n])
+                for n, v in unstack_tree(tree[key], model).items()}
+    step = tree["step"]
+    return {"step": int(step.item() if isinstance(step, torch.Tensor)
+                        else np.asarray(step)),
+            "mu": moments("mu"), "nu": moments("nu")}
+
+
+def train_state(model: DecoderLM, opt_state: dict, *, spec: bool = False):
+    """``{"params": ..., "opt": ...}`` in the reference's layout on the
+    host, parameters in their own dtypes: the tree both packages' training
+    loops checkpoint.  ``spec=True``: its structure, shapes and dtypes as
+    ``LeafSpec``s, a restore target that copies nothing."""
+    leaf = _spec if spec else _host
+    return {"params": stack_tree({n: leaf(p) for n, p in
+                                  model.named_parameters()}, model),
+            "opt": _opt_tree(opt_state, model, leaf)}
+
+
+@torch.no_grad()
+def load_train_state(tree: dict, model: DecoderLM) -> dict:
+    """Copy a ``train_state`` tree's parameters into `model` and return its
+    AdamW state in the port's form."""
+    values = unstack_tree(tree["params"], model)
     for name, p in model.named_parameters():
-        if name.split(".")[0] not in _STACKED:
-            _set(tree, name, leaf(p))
-    if len(model.prefix):
-        tree["prefix"] = [stacked(layers) for layers in model.prefix]
-    tree["body"] = [stacked(layers) for layers in model.body]
-    return tree
+        p.copy_(_to(values[name], p.device))
+    return opt_state_from_reference(tree["opt"], model)

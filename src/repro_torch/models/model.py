@@ -16,22 +16,31 @@ the reference and so in the port.
 Heads: "dense" (the unembedding, a plain matmul as in the reference) or
 "loghd" (the paper's class-axis compression of the vocab classifier:
 bundles (n, D) and profiles (V, n), logits are the profile-decode scores of
-``api.dispatch.loghd_head_scores``, through the ``loghd_head`` kernel).
+``api.dispatch.loghd_head_scores``, through the ``loghd_head`` kernel, with
+its gradient when autograd asks for one).
+
+Training: ``loss_fn`` is the mean token NLL plus the auxiliary loss, with
+the reference's sequence-chunked cross-entropy (``cfg.loss_chunk``), and
+``cfg.remat_policy`` recomputes each block in the backward ("full"), keeps
+its matmul outputs ("dots") or keeps everything ("none"), as the
+reference's ``jax.checkpoint`` policies do.
 
 This slice ports the attn and attn_local mixers and the dense ffn; a config
 with mla, mamba, mlstm or slstm mixers or moe ffns raises
-``NotImplementedError`` (ROADMAP queue 1).  There is no loss or training
-step yet.  ``decode_step`` updates the decode state in place and returns
-it (the reference returns a new state).
+``NotImplementedError`` (ROADMAP queue 1).  ``decode_step`` updates the
+decode state in place and returns it (the reference returns a new state).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.api.dispatch import loghd_head_scores
 from repro_torch.configs.base import BlockSpec, ModelConfig
@@ -52,6 +61,39 @@ def _mixer_cfg(cfg: ModelConfig, blk: BlockSpec) -> AttnConfig:
         head_dim=cfg.head_dim, qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
         rope_theta=cfg.rope_theta,
         window=cfg.local_window if blk.mixer == "attn_local" else None)
+
+
+# matmuls without batch dimensions: the weight products (x @ w flattens x
+# to 2-D), not attention's batched einsums (bmm)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(policy: str):
+    """How a block runs under ``cfg.remat_policy`` (``model.py:218-226``):
+    "none" keeps every activation for the backward; "full" keeps only the
+    block's input and recomputes the block in the backward
+    (``nothing_saveable``); "dots" keeps the outputs of the matmuls without
+    batch dimensions and recomputes the rest
+    (``dots_with_no_batch_dims_saveable``).  Without grad mode every
+    policy runs the block plainly."""
+    if policy not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                 _keep_dots) if policy == "dots" else None)
+
+    def run(blk, x, rope):
+        if policy == "none" or not torch.is_grad_enabled():
+            return blk(x, rope)
+        kw = {"context_fn": context} if context else {}
+        # no random op in a block: nothing to replay
+        return ckpt.checkpoint(blk, x, rope, use_reentrant=False,
+                               preserve_rng_state=False, **kw)
+    return run
 
 
 class Block(nn.Module):
@@ -91,7 +133,10 @@ class Block(nn.Module):
 
 
 class LogHDHead(nn.Module):
-    """The LogHD vocab head: bundles (n, D) and profiles (V, n)."""
+    """The LogHD vocab head: bundles (n, D) and profiles (V, n); its
+    forward gives the (..., V) float32 logits -||x M^T - P_v||^2 through
+    ``loghd_head_scores``: one ``loghd_head`` launch a call on the card,
+    differentiable in x, the bundles and the profiles on both routes."""
 
     def __init__(self, d_model: int, vocab: int, n: int, *, device, dtype):
         super().__init__()
@@ -161,21 +206,23 @@ class DecoderLM(nn.Module):
         return x
 
     def backbone(self, tokens=None, embeddings=None) -> torch.Tensor:
-        """Everything up to the head: (B, S, D) final hidden states."""
+        """Everything up to the head: (B, S, D) final hidden states, each
+        block run under the config's ``remat_policy``."""
         x = self._embed(tokens, embeddings)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         rope = rope_table(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        run = _remat(self.cfg.remat_policy)
         # prefix: position-major, all repetitions of a position in turn
         # (model.py:228-233)
         for stack in self.prefix:
             for blk in stack:
-                x = blk(x, rope)
+                x = run(blk, x, rope)
         # body: period-major, the whole pattern once per period
         # (model.py:238-245)
         for p in range(self.cfg.n_periods):
             for stack in self.body:
-                x = stack[p](x, rope)
+                x = run(stack[p], x, rope)
         return rms_norm(x, self.final_norm)
 
     def forward(self, tokens=None, *, embeddings=None):
@@ -214,7 +261,10 @@ class DecoderLM(nn.Module):
 
 
 def _check_cfg(params: DecoderLM, cfg: ModelConfig) -> DecoderLM:
-    if cfg is not params.cfg and cfg != params.cfg:
+    """`params` if they were built for `cfg`, which may differ from their
+    config in ``loss_chunk`` only (the loss reads it from `cfg`)."""
+    if cfg is not params.cfg and dataclasses.replace(
+            cfg, loss_chunk=params.cfg.loss_chunk) != params.cfg:
         raise ValueError(f"params were built for {params.cfg.name} "
                          f"(head {params.cfg.head}), not {cfg.name} "
                          f"(head {cfg.head})")
@@ -251,6 +301,52 @@ def prefill(params: DecoderLM, cfg: ModelConfig, tokens=None,
     return logits[:, -1:]
 
 
+def _xent_from_logits(logits: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+    """Summed token NLL of float32 logits (..., V): logsumexp minus the
+    target's logit (the reference's one-hot einsum picks the same value
+    exactly: every other term is a zero)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    return (lse - tgt).sum()
+
+
+def loss_fn(params: DecoderLM, cfg: ModelConfig, tokens, targets, *,
+            embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL over (B, S) plus the auxiliary loss: a float32
+    scalar that autograd differentiates in every parameter.  `tokens` and
+    `targets` are (B, S) ints (or `embeddings` (B, S, D) from a frontend
+    stub in place of the tokens).
+
+    With ``cfg.loss_chunk`` set, S > chunk and S % chunk == 0, the head and
+    the NLL run one (B, chunk) slice of the sequence at a time under a
+    checkpoint, as the reference's ``jax.checkpoint``-ed scan does
+    (``model.py:263-284``): the (B, chunk, V) logits are made again in the
+    backward instead of kept, so the LogHD head launches twice a chunk (a
+    forward and a recomputation)."""
+    model = _check_cfg(params, cfg)
+    x = model.backbone(tokens, embeddings)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    targets = torch.as_tensor(targets, device=x.device).long()
+    b, s, _ = x.shape
+    chunk = cfg.loss_chunk
+    if chunk and s > chunk and s % chunk == 0:
+        def chunk_nll(xi, ti):
+            return _xent_from_logits(model.head(xi), ti)
+
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(0, s, chunk):
+            xi, ti = x[:, c:c + chunk], targets[:, c:c + chunk]
+            if torch.is_grad_enabled():
+                nll = ckpt.checkpoint(chunk_nll, xi, ti, use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                nll = chunk_nll(xi, ti)
+            total = total + nll
+        return total / (b * s) + aux
+    return _xent_from_logits(model.head(x), targets) / (b * s) + aux
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device=None) -> dict:
     """Zero KV caches in the reference's layout: ``{"prefix": [...],
@@ -280,8 +376,8 @@ def decode_step(params: DecoderLM, cfg: ModelConfig, state: dict, tokens,
 
 
 class Model:
-    """Thin OO facade, as the reference's (without the loss: training is
-    not ported yet)."""
+    """Thin OO facade, as the reference's: ``init`` draws the weights,
+    ``loss`` is ``loss_fn`` (differentiable), ``forward`` the logits."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         self.cfg = cfg
@@ -289,6 +385,9 @@ class Model:
 
     def init(self, seed: int = 0) -> DecoderLM:
         return init_params(self.cfg, seed, self.device)
+
+    def loss(self, params: DecoderLM, tokens, targets) -> torch.Tensor:
+        return loss_fn(params, self.cfg, tokens, targets)
 
     def forward(self, params: DecoderLM, tokens):
         return forward(params, self.cfg, tokens)

@@ -5,6 +5,7 @@ encoder with the reference's projection injected, and the fit's math
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -23,9 +24,12 @@ from repro.core.quantize import dequantize as jax_dequantize
 from repro.core.quantize import quantize as jax_quantize
 from repro.data.synth import load_dataset as jax_load_dataset
 from repro_torch.core import bundling, codebook, faults, loghd, profiles
-from repro_torch.core import quantize
 from repro_torch.data.synth import load_dataset
 from repro_torch.hdc import conventional, encoders
+
+# the module, not the function that repro_torch.core exports under its
+# name (as repro.core does)
+quantize = importlib.import_module("repro_torch.core.quantize")
 
 # float32 results whose sums run in another order than XLA's
 F32 = dict(rtol=1e-5, atol=1e-6)
