@@ -63,7 +63,20 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    against the same steps through the plain head on the card), one
    chunked-CE step at (2, 1,024), ``run_training`` with int8 moments and
    its ~7 GB checkpoint under ``build/``, and a stop / resume against a
-   straight run at two layers.
+   straight run at two layers;
+8. slice 12's architectures at their published widths (``LM_ARCHS``),
+   each model freed before the next: granite-moe-1b-a400m (24 layers,
+   attention + MoE of 32 experts, top-8) and xlstm-125m (12 layers of
+   mLSTM / sLSTM) under both heads, jamba-v0.1-52b cut to one period of 8
+   layers (7 Mamba, 1 attention, 4 MoE of 16 experts; 13.3 B parameters)
+   and deepseek-v3-671b cut to one dense MLA layer and one MoE MLA layer
+   of 256 experts (14 B parameters) under the loghd head: teacher-forced
+   decode against forward in float32 (granite whole, xlstm and jamba one
+   period, at capacity factor E / k), ``run_serving`` of the serving
+   CLI's traffic in bf16 with launch counting, a repeat and a profiled
+   decode step, and two granite training steps at the training CLI's
+   defaults (every parameter's and every expert's gradient nonzero, a
+   positive aux loss).
 
 It checks each kernel against its plain version (``flip_corrupt`` bit for
 bit, batched over 1 and 18 points at bits 1, 2, 4 and 8 on LogHD's,
@@ -75,7 +88,8 @@ among them, with rows bitwise equal at B = 1, 64 and 1,559, two launches
 equal, and a launch chained after ``bundle_sim`` by programmatic dependent
 launch equal to an unchained one; ``loghd_head`` at B = 1, 4, 64 and 512
 of qwen3-1.7b's head and at n = 64 against a vocabulary no tile divides,
-every dtype pair, with the float32 argmax of plain, two launches equal and
+and at B = 1, 4 and 64 of each slice 12 architecture's head, every dtype
+pair, with the float32 argmax of plain, two launches equal and
 bf16 profiles equal to their float32 cast), each path's launch counts
 (``bundle_sim``'s split into
 serving-bucket and full-batch calls), that fits repeat bit for bit (the
@@ -113,7 +127,8 @@ kernel (``bundle_sim`` at B = 1, 64, 1,559 against n = 10 and 26 bundles,
 family's minibatch, ``flip_corrupt`` at one point and at the sweeps'
 18-point chunks, beside the chunk's one-point launches, with the sweeps'
 walls under ``sweeps``, ``profile_decode`` at ``PD_SHAPES`` and ``loghd_head``
-at B = 4 and 512 with bf16 and float32 profiles under ``shapes``;
+at B = 4 and 512 with bf16 and float32 profiles, at the training step's
+1,024 rows and at B = 4 of each slice 12 architecture under ``shapes``;
 ``profile_decode``'s chained pair and the launch floor under ``chains``;
 ``bundle_sim``'s launches by batch under ``launches_by_batch``), the number
 of rows whose kernel label
@@ -2049,8 +2064,9 @@ def phase_lm_kernel(torch, dev, shapes=LH_SHAPES, ragged=LH_RAGGED) -> float:
     float32 argmax; a bf16 P read as stored gives the bits of its float32
     cast; two launches give equal bits; the rows of each batch are bitwise
     the first rows of the largest one; then n = 64 bundles against a
-    vocabulary that no tile divides.  Returns the max abs error at the
-    decode shape in bfloat16 (the serving path's dtypes)."""
+    vocabulary that no tile divides (`ragged`, None: skipped).  Returns
+    the max abs error at the decode shape in bfloat16 (the serving path's
+    dtypes)."""
     from repro_torch.kernels.loghd_head import (loghd_head_logits,
                                                 loghd_head_logits_ref)
     from repro_torch.precision import full_f32
@@ -2107,15 +2123,16 @@ def phase_lm_kernel(torch, dev, shapes=LH_SHAPES, ragged=LH_RAGGED) -> float:
             del outs, big
     log(f"loghd_head: rows bitwise equal at B = "
         + ", ".join(str(s[0]) for s in shapes) + " for every dtype pair")
-    b, d, n, v = ragged
-    h = torch.randn((b, d), generator=g, device=dev)
-    m = torch.randn((n, d), generator=g, device=dev) / d ** 0.5
-    p = torch.randn((v, n), generator=g, device=dev) * 0.05
-    for hm in (torch.float32, torch.bfloat16):
-        for pd in (torch.float32, torch.bfloat16):
-            one(h.to(hm), m.to(hm), p.to(pd), f"({b}, {d}, {n}, {v})")
+    if ragged:
+        b, d, n, v = ragged
+        h = torch.randn((b, d), generator=g, device=dev)
+        m = torch.randn((n, d), generator=g, device=dev) / d ** 0.5
+        p = torch.randn((v, n), generator=g, device=dev) * 0.05
+        for hm in (torch.float32, torch.bfloat16):
+            for pd in (torch.float32, torch.bfloat16):
+                one(h.to(hm), m.to(hm), p.to(pd), f"({b}, {d}, {n}, {v})")
     from repro_torch.kernels.loghd_head import ops as lh_ops
-    for (b, d, n, v) in shapes + [ragged]:
+    for (b, d, n, v) in shapes + ([ragged] if ragged else []):
         for p_bf16 in (True, False):
             ks, chunks, wc, t, rb, vbk, smem = lh_ops._launch_args(
                 torch.cuda.current_device(), b, d, n, v, p_bf16)
@@ -2128,26 +2145,13 @@ def phase_lm_kernel(torch, dev, shapes=LH_SHAPES, ragged=LH_RAGGED) -> float:
     return err
 
 
-def phase_lm(torch, dev, cfg32=None, cfg16=None) -> dict:
-    """The decoder LM at full width: teacher-forced decode against forward
-    in float32, then ``run_serving`` with the ``launch/serve.py`` traffic
-    in bfloat16 under the loghd and the dense head, with launch counting,
-    a repeat, and a profile of one decode step."""
-    import dataclasses
-
-    import numpy as np
-    from repro_torch.kernels import common
-    from repro_torch.launch.serve import requests_for
+def decode_vs_forward(torch, dev, cfg32, g, tol: float) -> tuple:
+    """Teacher-forced ``decode_step`` against ``forward`` of `cfg32` in
+    float32 over (2, 32) tokens drawn from `g`, within `tol`: (the max abs
+    error, the share of positions whose argmax agrees)."""
     from repro_torch.models import model as M
     from repro_torch.precision import full_f32
-    from repro_torch.runtime import serve_loop
-
-    cfg32 = cfg32 or lm_config(dtype="float32")
-    cfg16 = cfg16 or lm_config()
-    out: dict = {}
-
-    # 1. decode against forward, float32, tokens (2, 32)
-    g = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
     with full_f32(), torch.no_grad():
         t0 = time.perf_counter()
         model = M.init_params(cfg32, seed=0, device=dev)
@@ -2167,23 +2171,58 @@ def phase_lm(torch, dev, cfg32=None, cfg16=None) -> dict:
         torch.cuda.synchronize()
     err = max_err(got, want)
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    log(f"LM {cfg32.name} float32 ({n_params} parameters, drawn in "
-        f"{init_s:.2f} s): teacher-forced decode vs forward over (2, 32) "
-        f"tokens: max_abs_err {err:.3e} on logits up to "
-        f"{float(want.abs().max()):.2f}, argmax agrees on {agree:.4f}")
+    log(f"LM {cfg32.name} float32 ({n_params} parameters, {cfg32.n_layers} "
+        f"layers, drawn in {init_s:.2f} s, peak allocated "
+        f"{torch.cuda.max_memory_allocated()} B): teacher-forced decode vs "
+        f"forward over (2, 32) tokens: max_abs_err {err:.3e} (bound {tol}) "
+        f"on logits up to {float(want.abs().max()):.2f}, argmax agrees on "
+        f"{agree:.4f}")
     check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
-          "LM float32 decode logits not finite or misshapen")
-    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
-    out["decode_vs_forward_err"] = err
+          f"LM {cfg32.name} float32 decode logits not finite or misshapen")
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     del model, state, want, got, steps
     torch.cuda.empty_cache()
+    return err, agree
 
-    # 2. serving in bf16, loghd head then dense head
+
+def phase_lm(torch, dev, cfg32=None, cfg16=None, *, heads=("loghd", "dense"),
+             decode_tol: float = 2e-3, keep_model: bool = True) -> dict:
+    """The decoder LM at full width: teacher-forced decode against forward
+    in float32 within `decode_tol` (``decode_vs_forward``; `cfg32` False:
+    not checked), then ``run_serving`` with the ``launch/serve.py``
+    traffic in bfloat16 under each of `heads`, with launch counting, a
+    repeat, and a profile of one decode step.  Each model's parameters,
+    init seconds and peak allocated bytes are printed; `keep_model` keeps
+    the loghd model for ``time_lm_head``."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import requests_for
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve_loop
+
+    cfg32 = lm_config(dtype="float32") if cfg32 is None else cfg32
+    cfg16 = cfg16 or lm_config()
+    out: dict = {}
+
+    # 1. decode against forward, float32, tokens (2, 32)
+    g = torch.Generator(device=dev).manual_seed(0)
+    if cfg32:
+        out["decode_vs_forward_err"], out["argmax_agree"] = \
+            decode_vs_forward(torch, dev, cfg32, g, decode_tol)
+
+    # 2. serving in bf16, under each head
     serve = serve_loop.ServeLoopConfig(batch_slots=4, max_new_tokens=16,
                                        max_len=256)
-    for head in ("loghd", "dense"):
+    for head in heads:
         cfg = dataclasses.replace(cfg16, head=head)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         model = M.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
         reqs = requests_for(cfg, 6, seed=0)
         steps = [0]
         real_step = serve_loop.decode_step
@@ -2209,10 +2248,14 @@ def phase_lm(torch, dev, cfg32=None, cfg16=None) -> dict:
         finally:
             serve_loop.decode_step = real_step
         n_tok = sum(len(v) for v in toks.values())
-        log(f"LM serve {cfg.name} head {head}: {len(toks)} requests, {n_tok}"
-            f" tokens, {n_steps} decode steps in {wall:.3f} s "
-            f"({n_tok / wall:.1f} tokens/s); repeat {wall2:.3f} s "
-            f"({n_tok / wall2:.1f} tokens/s); launches {launches}")
+        per_step = launches.get("loghd_head", 0) / n_steps
+        log(f"LM serve {cfg.name} {cfg.dtype} head {head} ({n_params} "
+            f"parameters, {cfg.n_layers} layers, drawn in {init_s:.2f} s): "
+            f"{len(toks)} requests, {n_tok} tokens, {n_steps} decode steps "
+            f"in {wall:.3f} s ({n_tok / wall:.1f} tokens/s); repeat "
+            f"{wall2:.3f} s ({n_tok / wall2:.1f} tokens/s); launches "
+            f"{launches}, loghd_head {per_step:g} a decode step; peak "
+            f"allocated {torch.cuda.max_memory_allocated()} B")
         for uid in sorted(toks):
             log(f"  req {uid} (prompt {len(reqs[uid].prompt)}): "
                 f"{toks[uid][:8].tolist()}...")
@@ -2220,7 +2263,7 @@ def phase_lm(torch, dev, cfg32=None, cfg16=None) -> dict:
         check(all(len(v) == 17 and v.min() >= 0 and v.max() < cfg.vocab
                   for v in toks.values()), "LM serve: tokens misshapen")
         check(all(np.array_equal(toks[u], again[u]) for u in toks),
-              f"LM serve ({head}): a second run gave other tokens")
+              f"LM serve {cfg.name} ({head}): a second run gave other tokens")
         want_lh = n_steps if head == "loghd" else 0
         check(launches.get("loghd_head", 0) == want_lh,
               f"loghd_head launched {launches.get('loghd_head', 0)} times "
@@ -2250,10 +2293,10 @@ def phase_lm(torch, dev, cfg32=None, cfg16=None) -> dict:
             model.embed.table.dtype)
         head_ms = device_ms(torch, lambda: model.head(x))
         head_top = profile_calls(torch, lambda: model.head(x), calls=20)[2]
-        log(f"LM decode step ({head} head, B = 4): wall {step_wall:.3f} ms "
-            f"(median of 20), device busy {busy:.3f} ms, so the device "
-            f"idles {1 - busy / step_wall:.1%}; {count:.0f} device kernels "
-            f"and copies a step")
+        log(f"LM decode step {cfg.name} ({head} head, B = 4): wall "
+            f"{step_wall:.3f} ms (median of 20), device busy {busy:.3f} ms, "
+            f"so the device idles {1 - busy / step_wall:.1%}; {count:.0f} "
+            f"device kernels and copies a step")
         for ms, cnt, key in top[:8]:
             log(f"  {ms:9.4f} ms  {cnt:5.0f}x  {key[:90]}")
         log(f"LM head ({head}) alone: {head_ms} ms of device time a call")
@@ -2263,11 +2306,11 @@ def phase_lm(torch, dev, cfg32=None, cfg16=None) -> dict:
                          wall_s=wall, repeat_wall_s=wall2,
                          step_wall_ms=step_wall, step_device_ms=busy,
                          kernels_per_step=count, head_device_ms=head_ms,
-                         model=model if head == "loghd" else None)
-        if head != "loghd":
-            del model
-    del state
-    torch.cuda.empty_cache()
+                         n_params=n_params, init_s=init_s,
+                         model=model if head == "loghd" and keep_model
+                         else None)
+        del model, state
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2407,7 +2450,7 @@ def train_step_times(torch, cfg, model, opt_state, step_fn, pipe,
                                           AdamWConfig(), lr=1e-6))
     del grads
     with torch.no_grad():
-        x = model.backbone(batch["tokens"])
+        x = model.backbone(batch["tokens"])[0]
     x.requires_grad_()
     head_params = list(model.head.parameters())
     targets = batch["targets"].long()
@@ -2456,10 +2499,14 @@ def train_losses(torch, dev, cfg, steps: int = LT_STEPS) -> dict:
                 peak=torch.cuda.max_memory_allocated())
 
 
-def check_grads_nonzero(torch, dev, cfg) -> None:
+def check_grads_nonzero(torch, dev, cfg) -> float:
     """Every parameter of a fresh full-width model gets a finite, nonzero
     gradient from the loss of the pipeline's first batch (the LogHD head's
-    through ``loghd_head``'s autograd Function on the card)."""
+    through ``loghd_head``'s autograd Function on the card; an MoE block's
+    router and expert leaves among them).  The expert slices with a zero
+    gradient are counted, not refused: an expert that no token of the
+    batch chose gets none, in the reference too.  Returns the batch's MoE
+    aux loss (0.0 without MoE blocks)."""
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.models.model import init_params, loss_fn
     model = init_params(cfg, seed=0, device=dev)
@@ -2471,10 +2518,22 @@ def check_grads_nonzero(torch, dev, cfg) -> None:
                                 list(params.values()))
     zero = [n for n, gr in zip(params, grads)
             if not (bool(torch.isfinite(gr).all()) and bool(gr.any()))]
+    experts = [(n, gr) for n, gr in zip(params, grads)
+               if ".moe.w" in n]
+    idle = [(n, int((~gr.flatten(1).any(1)).sum())) for n, gr in experts]
+    idle = [(n, k) for n, k in idle if k]
     log(f"LM {cfg.name} head {cfg.head}: {len(params) - len(zero)} of "
-        f"{len(params)} parameters have a finite nonzero gradient")
+        f"{len(params)} parameters have a finite nonzero gradient; "
+        f"{len(experts)} stacked expert leaves, "
+        f"{sum(gr.shape[0] for _, gr in experts)} expert slices, "
+        f"{sum(k for _, k in idle)} of them with a zero gradient")
+    if idle:
+        log(f"  experts no token of the batch chose: {idle[:8]}")
     check(not zero, f"{cfg.head} head: zero or non-finite gradients on "
           f"{zero[:8]} ({len(zero)} of {len(params)} parameters)")
+    with torch.no_grad():
+        aux = float(model.backbone(batch["tokens"])[1])
+    return aux
 
 
 def train_head(torch, dev, cfg, steps: int = LT_STEPS) -> dict:
@@ -2738,6 +2797,120 @@ def phase_lm_train(torch, dev, cfg=None) -> dict:
     return out
 
 
+# slice 12's architectures at their published widths: (arch, the float32
+# decode-vs-forward check's overrides, None: no check; its bound; the served
+# bf16 model's overrides; the heads served).  The bounds are the JAX
+# package's own (tests/test_arch_smoke.py:93 for attention, :111 for the
+# recurrent mixers); the capacity factors are E / k, so that no MoE token
+# is dropped and decode and forward compute one network (a decode step's
+# capacity counts its B tokens, a forward's all B x S).
+LM_ARCHS = (
+    ("granite-moe-1b-a400m", {"capacity_factor": 4.0}, 2e-3, {},
+     ("loghd", "dense")),
+    # one period: with more, the reference's decode walks the body in
+    # another order than its forward (ROADMAP queue 3)
+    ("xlstm-125m", {"n_periods": 1}, 5e-3, {}, ("loghd", "dense")),
+    # one period of 4: 13.3 B parameters, 27 GB in bf16 and 53 GB in
+    # float32; the whole 52 B would need 104 GB in bf16
+    ("jamba-v0.1-52b", {"n_periods": 1, "capacity_factor": 8.0}, 5e-3,
+     {"n_periods": 1}, ("loghd",)),
+    # one dense MLA layer and one MoE MLA layer of 256 experts: 14 B
+    # parameters, 28 GB in bf16; bf16 only
+    ("deepseek-v3-671b", None, None, {"n_prefix": 1, "n_periods": 1},
+     ("loghd",)),
+)
+LM_ARCH_KERNEL_ROWS = (1, 4, 64)
+
+
+def lm_arch_head_shapes(b: int) -> list:
+    """(arch, (b, d_model, n, V)) of the loghd head of each of
+    ``LM_ARCHS``."""
+    from repro_torch.configs import get_config
+    return [(arch, (b, cfg.d_model, cfg.loghd_bundles, cfg.vocab))
+            for arch, *_ in LM_ARCHS for cfg in [get_config(arch)]]
+
+
+def phase_lm_arch_kernels(torch, dev) -> dict:
+    """``phase_lm_kernel`` at each of ``LM_ARCHS``' head shapes, B = 1, 4
+    and 64 (widths 768 to 7,168, n = 18 and 19, where the A stage never
+    ran before): both dtype pairs of h / M and of P, the float32 argmax of
+    plain, two launches equal, rows independent of B.  Returns each
+    arch's max abs error at B = 4 in bf16."""
+    errs = {}
+    for arch, (_, d, n, v) in lm_arch_head_shapes(1):
+        errs[arch] = phase_lm_kernel(
+            torch, dev, shapes=[(b, d, n, v) for b in LM_ARCH_KERNEL_ROWS],
+            ragged=None)
+    return errs
+
+
+def lm_arch_train(torch, dev, cfg) -> dict:
+    """Two steps of ``make_train_step`` at ``launch/train.py``'s defaults
+    (``train_losses``) of `cfg` at full width, after every parameter's and
+    every expert's gradient is checked nonzero: finite losses, a positive
+    MoE aux loss, one ``loghd_head`` launch a step."""
+    import math
+    aux = check_grads_nonzero(torch, dev, cfg)
+    torch.cuda.empty_cache()
+    r = train_losses(torch, dev, cfg, steps=2)
+    n_params = sum(p.numel() for p in r["model"].parameters())
+    log(f"LM train {cfg.name} head {cfg.head} ({n_params} parameters, "
+        f"{cfg.dtype}, remat {cfg.remat_policy}, batch {LT_BATCH} x "
+        f"{LT_SEQ}): aux loss of the first batch {aux:.6f}; losses "
+        + " ".join(f"{x:.4f}" for x in r["losses"])
+        + "; step walls " + " ".join(f"{w * 1e3:.1f}" for w in r["walls"])
+        + f" ms; peak allocated {r['peak']} B; launches {r['launches']}")
+    check(all(math.isfinite(x) for x in r["losses"]),
+          f"{cfg.name}: a loss is not finite: {r['losses']}")
+    check(aux > 0, f"{cfg.name}: MoE aux loss {aux} not positive")
+    want = 1 if cfg.head == "loghd" else 0
+    check(r["per_step"] == [want, want], f"{cfg.name}: loghd_head launches "
+          f"a step {r['per_step']}, not {want} each")
+    check(sum(r["launches"].values()) == 2 * want,
+          f"{cfg.name}: kernels launched on the training path: "
+          f"{r['launches']}")
+    out = dict(losses=r["losses"], launches=r["launches"], aux=aux,
+               walls=r["walls"], peak_bytes=r["peak"], n_params=n_params)
+    del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_archs(torch, dev) -> dict:
+    """Slice 12's architectures through the LM entry points at their
+    published widths (``LM_ARCHS``; every depth cut printed):
+    ``phase_lm``'s decode-against-forward check in float32, ``run_serving``
+    of the CLI's traffic in bf16 with its launch, repeat and profile
+    checks, each model freed before the next; and granite-moe's two
+    training steps (``lm_arch_train``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    log(f"slice 12 LM phase: {torch.cuda.memory_allocated()} B allocated "
+        f"by earlier phases")
+    out = {}
+    for arch, dec_over, tol, serve_over, heads in LM_ARCHS:
+        t0 = time.perf_counter()
+        full = dataclasses.replace(get_config(arch), head="loghd")
+        cfg32 = (dataclasses.replace(full, dtype="float32", **dec_over)
+                 if dec_over is not None else False)
+        cfg16 = dataclasses.replace(full, **serve_over)
+        for what, cfg in (("decode check (float32)", cfg32),
+                          ("serving (bf16)", cfg16)):
+            if cfg and cfg.n_layers != full.n_layers:
+                log(f"LM {arch} {what}: depth cut to {cfg.n_layers} of "
+                    f"{full.n_layers} layers ({cfg.param_count()} of "
+                    f"{full.param_count()} parameters)")
+        r = phase_lm(torch, dev, cfg32, cfg16, heads=heads,
+                     decode_tol=tol or 0.0, keep_model=False)
+        if full.n_experts and arch.startswith("granite"):
+            r["train"] = lm_arch_train(torch, dev, full)
+        out[arch] = r
+        log(f"LM {arch}: {time.perf_counter() - t0:.1f} s")
+    log(f"slice 12 LM phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_fit_profile(torch, mm: dict) -> dict:
     """Where the LogHD fit's time goes: one Eq. 9 epoch (98 minibatch
     steps) on the host clock and on the device (torch.profiler), the
@@ -2794,23 +2967,67 @@ def phase_fit_profile(torch, mm: dict) -> dict:
                 steps=steps, kernels_per_step=per_step, codebook_s=book_s)
 
 
-def time_lm_head(torch, lm: dict, rates: dict) -> dict:
-    """loghd_head, its plain version and the library form on the served
-    LM's bf16 bundles and bf16 hidden states, with its bf16 profiles and
-    their float32 cast, at the decode step (B = 4; with bf16 profiles, the
-    row of the kernels line) and at a 512-row prefill, and with the bf16
-    profiles at the training step's 1,024 rows: CUDA-event time per
-    eager call, profiler device time (the two kernels' durations summed,
-    the score stage's wait for A included), and the span of a call in a
-    CUDA graph with the score stage chained by PDL and without."""
+def lm_head_row(torch, rates: dict, h, m, p, tag: str = "") -> dict:
+    """One ``loghd_head`` timing row on h (B, D), M (n, D), P (V, n):
+    the kernel, its plain version and the library form (``h @ M^T``, then
+    one ``torch.addmm``), each by CUDA events per eager call and profiler
+    device time (the two kernels' durations summed, the score stage's wait
+    for A included), the span of a call in a CUDA graph with the score
+    stage chained by PDL and without, and the bound (h, M and P read once,
+    the float32 logits written once)."""
     from repro_torch.kernels import common
     from repro_torch.kernels.loghd_head import (loghd_head_logits,
                                                 loghd_head_logits_ref)
+    (b, d), (n, _), v = h.shape, m.shape, p.shape[0]
+
+    def library():
+        a = h.float() @ m.float().T
+        pf = p.float()
+        return torch.addmm(-(a * a).sum(1, keepdim=True) - (pf * pf).sum(1),
+                           a, pf.T, alpha=2.0)
+
+    def kernel():
+        return loghd_head_logits(h, m, p)
+    roles = {"kernel": kernel,
+             "plain": lambda: loghd_head_logits_ref(h, m, p),
+             "library": library}
+    t = {role: (time_ms(torch, fn), device_ms(torch, fn))
+         for role, fn in roles.items()}
+    copies = 20 if b <= 64 else 4 if b <= 512 else 2
+    span = graph_span_ms(torch, kernel, copies=copies)
+    with common.pdl(False):
+        span_off = graph_span_ms(torch, kernel, copies=copies)
+    lib_span = graph_span_ms(torch, library, copies=copies)
+    n_bytes = (b * d * h.element_size() + n * d * m.element_size()
+               + v * n * p.element_size() + b * v * 4)
+    n_ops = 2 * b * d * n + 2 * b * v * n + 2 * v * n + 2 * b * n + 3 * b * v
+    b_ms, b_by = bound_ms(rates, n_bytes, n_ops, "float32")
+    pname = str(p.dtype).split(".")[1]
+    log(f"time loghd_head {tag}({b}, {d}, {n}, {v}) P {pname}: bound "
+        f"{b_ms:.5f} ms by {b_by} ({n_bytes} B, {n_ops} flop); span in a "
+        f"graph {span:.5f} ms (PDL off {span_off:.5f}, library "
+        f"{lib_span:.5f}); CUDA events | profiler device ms: "
+        + "; ".join(f"{role} {t[role][0]} | {t[role][1]}" for role in t))
+    return dict(shape=[b, d, n, v], p_dtype=pname, ms=t["kernel"][0],
+                plain_ms=t["plain"][0], library_ms=t["library"][0],
+                device_ms=t["kernel"][1], plain_device_ms=t["plain"][1],
+                library_device_ms=t["library"][1], span_ms=span,
+                span_no_pdl_ms=span_off, library_span_ms=lib_span,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def time_lm_head(torch, lm: dict, rates: dict) -> dict:
+    """``lm_head_row`` on the served LM's bf16 bundles and bf16 hidden
+    states, with its bf16 profiles and their float32 cast, at the decode
+    step (B = 4; with bf16 profiles, the row of the kernels line) and at a
+    512-row prefill, and with the bf16 profiles at the training step's
+    1,024 rows; then at the decode step of each of slice 12's
+    architectures (``time_lm_head_archs``)."""
     head = lm["loghd"]["model"].head
     m = head.bundles.detach().contiguous()
     p16 = head.profiles.detach().contiguous()
     g = torch.Generator(device=m.device).manual_seed(5)
-    (n, d), v = m.shape, p16.shape[0]
+    d = m.shape[1]
     rows, first = [], None
     # the decode step and a prefill with bf16 and float32 profiles, and the
     # training step's rows (LT_SHAPE) with the bf16 profiles it trains
@@ -2818,48 +3035,32 @@ def time_lm_head(torch, lm: dict, rates: dict) -> dict:
                   (LT_SHAPE[0], (p16,))):
         h = torch.randn((b, d), generator=g, device=m.device).to(m.dtype)
         for p in ps:
-            def library(h=h, p=p):
-                a = h.float() @ m.float().T
-                pf = p.float()
-                return torch.addmm(-(a * a).sum(1, keepdim=True)
-                                   - (pf * pf).sum(1), a, pf.T, alpha=2.0)
-
-            def kernel(h=h, p=p):
-                return loghd_head_logits(h, m, p)
-            roles = {"kernel": kernel,
-                     "plain": lambda h=h, p=p: loghd_head_logits_ref(h, m, p),
-                     "library": library}
-            t = {role: (time_ms(torch, fn), device_ms(torch, fn))
-                 for role, fn in roles.items()}
-            copies = 20 if b <= 64 else 4 if b <= 512 else 2
-            span = graph_span_ms(torch, kernel, copies=copies)
-            with common.pdl(False):
-                span_off = graph_span_ms(torch, kernel, copies=copies)
-            lib_span = graph_span_ms(torch, library, copies=copies)
-            n_bytes = (b * d * h.element_size() + n * d * m.element_size()
-                       + v * n * p.element_size() + b * v * 4)
-            n_ops = (2 * b * d * n + 2 * b * v * n + 2 * v * n + 2 * b * n
-                     + 3 * b * v)
-            b_ms, b_by = bound_ms(rates, n_bytes, n_ops, "float32")
-            pname = str(p.dtype).split(".")[1]
-            row = dict(shape=[b, d, n, v], p_dtype=pname, ms=t["kernel"][0],
-                       plain_ms=t["plain"][0], library_ms=t["library"][0],
-                       device_ms=t["kernel"][1],
-                       plain_device_ms=t["plain"][1],
-                       library_device_ms=t["library"][1], span_ms=span,
-                       span_no_pdl_ms=span_off, library_span_ms=lib_span,
-                       bound_ms=b_ms, bound_by=b_by)
+            row = lm_head_row(torch, rates, h, m, p)
             rows.append(row)
-            log(f"time loghd_head B={b:<4} P {pname}: bound {b_ms:.5f} ms by "
-                f"{b_by} ({n_bytes} B, {n_ops} flop); span in a graph "
-                f"{span:.5f} ms (PDL off {span_off:.5f}, library "
-                f"{lib_span:.5f}); CUDA events | profiler device ms: "
-                + "; ".join(f"{role} {t[role][0]} | {t[role][1]}"
-                            for role in t))
             if b == 4 and p is p16:
                 first = dict(row)
-    first["shapes"] = rows
+    first["shapes"] = rows + time_lm_head_archs(torch, rates, m.device)
     return first
+
+
+def time_lm_head_archs(torch, rates: dict, dev) -> list:
+    """``lm_head_row`` at the decode step (B = 4) of each architecture of
+    ``LM_ARCHS``, on bf16 h, M and P drawn at the LM's scales (a
+    final-normed state, bundles N(0, 1/D), profiles 0.05 N(0, 1)), with
+    bf16 profiles and their float32 cast; each row names its
+    architecture."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for arch, (b, d, n, v) in lm_arch_head_shapes(4):
+        h = torch.randn((b, d), generator=g, device=dev).bfloat16()
+        m = (torch.randn((n, d), generator=g, device=dev) / d ** 0.5
+             ).bfloat16()
+        p = (torch.randn((v, n), generator=g, device=dev) * 0.05).bfloat16()
+        for pp in (p, p.float()):
+            row = lm_head_row(torch, rates, h, m, pp, tag=f"{arch} ")
+            row["arch"] = arch
+            rows.append(row)
+    return rows
 
 
 def enc_case(torch, x, proj, bias, center) -> dict:
@@ -3244,6 +3445,7 @@ def main() -> int:
 
     errs = phase_kernels(torch, dev)
     errs["loghd_head"] = phase_lm_kernel(torch, dev)
+    arch_head_errs = phase_lm_arch_kernels(torch, dev)
     main_run = phase_main_path(torch, dev)
     mm = phase_matched_memory(torch, dev)
     t0 = time.perf_counter()
@@ -3254,6 +3456,7 @@ def main() -> int:
     phase_fit_profile(torch, mm)
     lm = phase_lm(torch, dev)
     lm_train = phase_lm_train(torch, dev)
+    lm_archs = phase_lm_archs(torch, dev)
     times = phase_times(torch, main_run, mm, lm, rates)
 
     # launches of every path's run: slice 1's LogHD path, the shared
@@ -3277,6 +3480,12 @@ def main() -> int:
     by_path["lm_train_run_training"] = dict(collections.Counter(
         lm_train["entry"]["launches"])
         + collections.Counter(lm_train["restart"]["launches"]))
+    # slice 12's architectures: serving under each head, granite's training
+    for arch, r in lm_archs.items():
+        by_path.update({f"lm_serve_{arch}_{head}": r[head]["launches"]
+                        for head in ("loghd", "dense") if head in r})
+        if "train" in r:
+            by_path[f"lm_train_{arch}"] = r["train"]["launches"]
     # bundle_sim's launches of each path, in serving buckets (at most
     # MAX_BATCH rows) and in larger batches
     none = {"bucket": 0, "full": 0}
@@ -3287,8 +3496,7 @@ def main() -> int:
     bs_batches["fault_zoo"] = zoo["bs_batches"]
     bs_batches["extreme"] = none
     bs_batches["serve"] = serve["bs_batches"]
-    bs_batches.update({f"lm_serve_{head}": none for head in ("loghd", "dense")})
-    bs_batches.update({p: none for p in by_path if p.startswith("lm_train")})
+    bs_batches.update({p: none for p in by_path if p.startswith("lm_")})
     for p, c in bs_batches.items():
         check(c["bucket"] + c["full"] == by_path[p].get("bundle_sim", 0),
               f"{p}: bundle_sim batches {c} do not sum to its launches")
@@ -3308,6 +3516,8 @@ def main() -> int:
             "launches_by_path": {p: c.get(name, 0)
                                  for p, c in by_path.items()},
             "max_abs_err": errs[name], "ms": t["ms"],
+            **({"max_abs_err_by_arch": arch_head_errs}
+               if name == "loghd_head" else {}),
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],

@@ -1,5 +1,6 @@
-"""The decoder LM of the port (``repro.models`` for the attn / attn_local
-mixers and the dense ffn): ``layers``, ``attention``, ``model``, and
+"""The decoder LM of the port (``repro.models`` without its sharding):
+``layers``, the mixers ``attention`` (attn / attn_local), ``mla``,
+``mamba`` and ``xlstm`` (mlstm / slstm), the ``moe`` ffn, ``model``, and
 ``convert``, the weight exchange with the JAX package."""
 
 from repro_torch.models.model import (DecoderLM, Model, decode_step, forward,

@@ -6,8 +6,12 @@ The exchange format is the reference's parameter tree with numpy leaves
 "final_norm", "prefix": [...], "body": [...], "head": {...}}``, where each
 ``prefix`` / ``body`` entry holds one pattern position's block parameters
 stacked over repetitions / periods on the first axis.  A block's subtree
-(``ln1``, ``attn.wq``, ..., ``mlp.wo``) has the same dotted names as the
-port's ``Block`` parameters.  Neither direction imports JAX; bfloat16
+(``ln1``, ``attn.wq`` / ``mla.wkv_b`` / ``mamba.a_log`` / ``mlstm.wq`` /
+``slstm.rz``, ..., ``mlp.wo`` / ``moe.router``) has the same dotted names
+as the port's ``Block`` parameters, and each leaf keeps the reference's
+dtype (a bf16 model's norms, MoE router, Mamba ``a_log`` / ``dt_bias`` /
+``d_skip``, xLSTM ``skip_w`` and gate biases stay float32).  Neither
+direction imports JAX; bfloat16
 leaves (ml_dtypes arrays) are read through their bits, and come back as
 float32 arrays, which widen bf16 exactly.
 

@@ -8,10 +8,17 @@ layers before it.  The port stores the body as one ``ModuleList`` per
 pattern position, indexed by period, as the reference stacks its
 parameters, and walks it in the reference's two orders: ``forward``
 period-major (``model.py:238-245``), ``decode_step`` position-major
-(``model.py:389-396``).  The two agree when the pattern is one block (qwen3
-and every other config of this slice but gemma3) or there is one period;
-otherwise teacher-forced decode is a different network from forward, in
-the reference and so in the port.
+(``model.py:389-396``).  The two agree when the pattern is one block
+(qwen3, granite-moe, deepseek's body) or there is one period; otherwise
+(gemma3, jamba, xlstm) teacher-forced decode is a different network from
+forward, in the reference and so in the port.
+
+Mixers: attention (``attn``, ``attn_local``), ``mla``, ``mamba``,
+``mlstm`` and ``slstm``, each held by its block under the reference's key;
+ffns: dense, ``moe`` (whose Switch auxiliary loss ``forward`` returns and
+``loss_fn`` adds, summed over the blocks in the reference's order) or
+none.  Each mixer with a rotation (attention over ``head_dim`` channels,
+MLA over ``mla_rope_dim``) reads a rotary table of its own width.
 
 Heads: "dense" (the unembedding, a plain matmul as in the reference) or
 "loghd" (the paper's class-axis compression of the vocab classifier:
@@ -25,10 +32,9 @@ the reference's sequence-chunked cross-entropy (``cfg.loss_chunk``), and
 its matmul outputs ("dots") or keeps everything ("none"), as the
 reference's ``jax.checkpoint`` policies do.
 
-This slice ports the attn and attn_local mixers and the dense ffn; a config
-with mla, mamba, mlstm or slstm mixers or moe ffns raises
-``NotImplementedError`` (ROADMAP queue 1).  ``decode_step`` updates the
-decode state in place and returns it (the reference returns a new state).
+``decode_step`` updates the decode state in place, KV caches and
+recurrent states alike, and returns it (the reference returns a new
+state).
 """
 
 from __future__ import annotations
@@ -49,18 +55,53 @@ from repro_torch.models.attention import (Attention, AttnConfig, DecodeIndex,
                                           init_kv_cache)
 from repro_torch.models.layers import (DenseHead, Embed, GatedMLP, norm_scale,
                                        normal_, rms_norm, rope_table)
+from repro_torch.models.mamba import Mamba, MambaConfig, init_mamba_state
+from repro_torch.models.mla import MLA, MLAConfig, init_mla_cache
+from repro_torch.models.moe import MoE, MoEConfig
+from repro_torch.models.xlstm import (MLSTM, SLSTM, XLSTMConfig,
+                                      init_mlstm_state, init_slstm_state)
 
-_UNPORTED = "is not ported yet (ROADMAP queue 1, item 'LM stack')"
+
+def _mixer_cfg(cfg: ModelConfig, blk: BlockSpec):
+    """The mixer's config (``model.py:42-64``); an unknown mixer raises
+    ``ValueError``."""
+    if blk.mixer in ("attn", "attn_local"):
+        return AttnConfig(
+            d_model=cfg.d_model, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
+            rope_theta=cfg.rope_theta,
+            window=cfg.local_window if blk.mixer == "attn_local" else None)
+    if blk.mixer == "mla":
+        return MLAConfig(
+            d_model=cfg.d_model, n_heads=cfg.n_heads, q_lora=cfg.mla_q_lora,
+            kv_lora=cfg.mla_kv_lora, nope_dim=cfg.mla_nope_dim,
+            rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim,
+            rope_theta=cfg.rope_theta)
+    if blk.mixer == "mamba":
+        return MambaConfig(d_model=cfg.d_model)
+    if blk.mixer in ("mlstm", "slstm"):
+        return XLSTMConfig(d_model=cfg.d_model, n_heads=cfg.n_kv_heads)
+    raise ValueError(f"unknown mixer {blk.mixer!r}")
 
 
-def _mixer_cfg(cfg: ModelConfig, blk: BlockSpec) -> AttnConfig:
-    if blk.mixer not in ("attn", "attn_local"):
-        raise NotImplementedError(f"the {blk.mixer} mixer {_UNPORTED}")
-    return AttnConfig(
-        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
-        rope_theta=cfg.rope_theta,
-        window=cfg.local_window if blk.mixer == "attn_local" else None)
+def _ffn_cfg(cfg: ModelConfig, blk: BlockSpec) -> Optional[MoEConfig]:
+    """The MoE config of a ``moe`` ffn (``model.py:67-73``), else None."""
+    if blk.ffn != "moe":
+        return None
+    return MoEConfig(d_model=cfg.d_model, d_ff=cfg.moe_d_ff,
+                     n_experts=cfg.n_experts, top_k=cfg.top_k,
+                     capacity_factor=cfg.capacity_factor,
+                     shared_expert_ff=cfg.shared_expert_ff)
+
+
+# a block's mixer module, under the reference's parameter key
+_MIXERS = {"attn": Attention, "mla": MLA, "mamba": Mamba, "mlstm": MLSTM,
+           "slstm": SLSTM}
+
+
+def _mixer_key(blk: BlockSpec) -> str:
+    return "attn" if blk.mixer in ("attn", "attn_local") else blk.mixer
 
 
 # matmuls without batch dimensions: the weight products (x @ w flattens x
@@ -86,50 +127,93 @@ def _remat(policy: str):
     context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
                                  _keep_dots) if policy == "dots" else None)
 
-    def run(blk, x, rope):
+    def run(blk, x, ropes):
         if policy == "none" or not torch.is_grad_enabled():
-            return blk(x, rope)
+            return blk(x, ropes)
         kw = {"context_fn": context} if context else {}
         # no random op in a block: nothing to replay
-        return ckpt.checkpoint(blk, x, rope, use_reentrant=False,
+        return ckpt.checkpoint(blk, x, ropes, use_reentrant=False,
                                preserve_rng_state=False, **kw)
     return run
 
 
 class Block(nn.Module):
-    """Residual block: x + mixer(ln1(x)), then x + ffn(ln2(x))."""
+    """Residual block: x + mixer(ln1(x)), then x + ffn(ln2(x)).  The mixer
+    is the attribute named by ``key`` (the reference's parameter key:
+    attn, mla, mamba, mlstm or slstm); the ffn is ``mlp``, ``moe`` or
+    none."""
 
     def __init__(self, cfg: ModelConfig, blk: BlockSpec, *, device, dtype):
         super().__init__()
-        if blk.ffn not in ("dense", "none"):
-            raise NotImplementedError(f"the {blk.ffn} ffn {_UNPORTED}")
+        kw = dict(device=device, dtype=dtype)
         self.ln1 = norm_scale(cfg.d_model, device)
-        self.attn = Attention(_mixer_cfg(cfg, blk), device=device, dtype=dtype)
-        self.mlp = None
-        if blk.ffn == "dense":
+        mc = _mixer_cfg(cfg, blk)
+        self.key = _mixer_key(blk)
+        setattr(self, self.key, _MIXERS[self.key](mc, **kw))
+        self.mlp = self.moe = None
+        if blk.ffn != "none":
             self.ln2 = norm_scale(cfg.d_model, device)
-            self.mlp = GatedMLP(cfg.d_model, cfg.d_ff, device=device,
-                                dtype=dtype)
+        if blk.ffn == "dense":
+            self.mlp = GatedMLP(cfg.d_model, cfg.d_ff, **kw)
+        elif blk.ffn == "moe":
+            self.moe = MoE(_ffn_cfg(cfg, blk), **kw)
+
+    @property
+    def mixer(self) -> nn.Module:
+        return getattr(self, self.key)
+
+    @property
+    def rope_dim(self) -> Optional[int]:
+        """The width of the rotary table the mixer reads, or None."""
+        if self.key == "attn":
+            return self.attn.cfg.head_dim
+        return self.mla.cfg.rope_dim if self.key == "mla" else None
 
     def init_weights(self, gen: torch.Generator) -> None:
-        self.attn.init_weights(gen)
-        if self.mlp is not None:
-            self.mlp.init_weights(gen)
+        self.mixer.init_weights(gen)
+        for ffn in (self.mlp, self.moe):
+            if ffn is not None:
+                ffn.init_weights(gen)
 
-    def forward(self, x: torch.Tensor, rope) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor):
+        if self.mlp is not None:
+            return x + self.mlp(rms_norm(x, self.ln2)), None
+        if self.moe is not None:
+            y, aux = self.moe(rms_norm(x, self.ln2))
+            return x + y, aux
+        return x, None
+
+    def forward(self, x: torch.Tensor, ropes: dict):
+        """x (B, S, D) -> (x, the MoE aux loss or None); `ropes` maps a
+        rotary width to its ``rope_table``."""
         # the mixer's output is cast to x's dtype (model.py:168)
-        x = x + self.attn(rms_norm(x, self.ln1), rope).to(x.dtype)
-        if self.mlp is not None:
-            x = x + self.mlp(rms_norm(x, self.ln2))
-        return x
+        mixed = self.mixer(rms_norm(x, self.ln1), ropes.get(self.rope_dim))
+        return self._ffn(x + mixed.to(x.dtype))
 
-    def decode(self, x: torch.Tensor, cache: dict, layer: int, rope,
-               where: DecodeIndex) -> torch.Tensor:
-        x = x + self.attn.decode(rms_norm(x, self.ln1), cache["k"][layer],
-                                 cache["v"][layer], rope, where)
-        if self.mlp is not None:
-            x = x + self.mlp(rms_norm(x, self.ln2))
-        return x
+    def decode(self, x: torch.Tensor, st: dict, layer: int, ropes: dict,
+               index) -> torch.Tensor:
+        """One token through layer `layer` of this position's stacked
+        state `st` (updated in place), as ``model.py:332-358``: the MoE aux
+        loss is dropped.  ``index(length, local)`` gives the
+        ``DecodeIndex`` of a cache of that length."""
+        h = rms_norm(x, self.ln1)
+        rope = ropes.get(self.rope_dim)
+        if self.key == "attn":
+            ck = st["k"]
+            mixed = self.attn.decode(
+                h, ck[layer], st["v"][layer], rope,
+                index(ck.shape[2], self.attn.cfg.window is not None))
+        elif self.key == "mla":
+            c_kv = st["c_kv"]
+            mixed = self.mla.decode(h, c_kv[layer], st["k_rope"][layer], rope,
+                                    index(c_kv.shape[2], False))
+        elif self.key == "mamba":
+            mixed = self.mamba.decode(h, st["conv"][layer], st["ssm"][layer])
+        elif self.key == "mlstm":
+            mixed = self.mlstm.decode(h, *(st[k][layer] for k in "cnm"))
+        else:
+            mixed = self.slstm.decode(h, *(st[k][layer] for k in "cnmh"))
+        return self._ffn(x + mixed)[0]
 
 
 class LogHDHead(nn.Module):
@@ -173,6 +257,9 @@ class DecoderLM(nn.Module):
         self.body = nn.ModuleList(
             nn.ModuleList(Block(cfg, blk, **kw) for _ in range(cfg.n_periods))
             for blk in cfg.pattern)
+        self.rope_dims = sorted({stack[0].rope_dim
+                                 for stack in (*self.prefix, *self.body)
+                                 if len(stack) and stack[0].rope_dim})
         if cfg.head == "dense":
             self.head = DenseHead(cfg.d_model, cfg.vocab, **kw)
         elif cfg.head == "loghd":
@@ -205,57 +292,78 @@ class DecoderLM(nn.Module):
                                  device=x.device)
         return x
 
-    def backbone(self, tokens=None, embeddings=None) -> torch.Tensor:
-        """Everything up to the head: (B, S, D) final hidden states, each
-        block run under the config's ``remat_policy``."""
+    def _ropes(self, positions: torch.Tensor) -> dict:
+        """Each rotary width's table at `positions`, computed once a pass
+        and shared by the layers (the reference recomputes it in each)."""
+        return {dim: rope_table(positions, dim, self.cfg.rope_theta)
+                for dim in self.rope_dims}
+
+    def backbone(self, tokens=None, embeddings=None):
+        """Everything up to the head: ((B, S, D) final hidden states, the
+        summed MoE aux loss () float32), each block run under the config's
+        ``remat_policy``.  The aux losses are summed as the reference's
+        scans sum them: each prefix position's layers, then each period's
+        blocks in pattern order, then the periods."""
         x = self._embed(tokens, embeddings)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
-        rope = rope_table(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        ropes = self._ropes(positions)
         run = _remat(self.cfg.remat_policy)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         # prefix: position-major, all repetitions of a position in turn
         # (model.py:228-233)
         for stack in self.prefix:
+            auxs = []
             for blk in stack:
-                x = run(blk, x, rope)
+                x, a = run(blk, x, ropes)
+                auxs.append(a)
+            if auxs[0] is not None:
+                aux = aux + torch.stack(auxs).sum()
         # body: period-major, the whole pattern once per period
         # (model.py:238-245)
+        periods = []
         for p in range(self.cfg.n_periods):
+            per = None
             for stack in self.body:
-                x = run(stack[p], x, rope)
-        return rms_norm(x, self.final_norm)
+                x, a = run(stack[p], x, ropes)
+                if a is not None:
+                    per = a if per is None else per + a
+            periods.append(per)
+        if periods[0] is not None:
+            aux = aux + torch.stack(periods).sum()
+        return rms_norm(x, self.final_norm), aux
 
     def forward(self, tokens=None, *, embeddings=None):
         """tokens (B, S) int (or `embeddings` (B, S, D) from a frontend
-        stub) -> (logits (B, S, V) float32, aux loss 0.0)."""
-        x = self.backbone(tokens, embeddings)
-        return self.head(x), torch.zeros((), device=x.device)
+        stub) -> (logits (B, S, V) float32, aux loss () float32: the MoE
+        blocks' summed Switch losses, 0 without them)."""
+        x, aux = self.backbone(tokens, embeddings)
+        return self.head(x), aux
 
     @torch.no_grad()
     def decode_step(self, state: dict, tokens, pos, *, embeddings=None):
         """One decode step.  tokens (B, 1) int; pos a scalar or (B,) int
-        per-slot positions.  Writes each layer's k and v into `state` in
-        place; returns (logits (B, 1, V) float32, state)."""
+        per-slot positions.  Writes each layer's cache entries and
+        recurrent states into `state` in place; returns (logits (B, 1, V)
+        float32, state)."""
         x = self._embed(tokens, embeddings)
         b = x.shape[0]
         pos = torch.broadcast_to(
             torch.as_tensor(pos, dtype=torch.int64, device=x.device), (b,))
-        rope = rope_table(pos[:, None], self.cfg.head_dim,
-                          self.cfg.rope_theta)
+        ropes = self._ropes(pos[:, None])
         where: dict = {}
 
-        def index(blk: Block, cache: dict) -> DecodeIndex:
-            key = (cache["k"].shape[2], blk.attn.cfg.window is not None)
-            if key not in where:
-                where[key] = DecodeIndex.of(pos, *key)
-            return where[key]
+        def index(length: int, local: bool) -> DecodeIndex:
+            if (length, local) not in where:
+                where[length, local] = DecodeIndex.of(pos, length, local)
+            return where[length, local]
 
         # both stacks position-major: every layer of pattern position 0,
         # then of position 1, ... (model.py:376-387 and :389-396)
         for name, stacks in (("prefix", self.prefix), ("body", self.body)):
-            for stack, cache in zip(stacks, state.get(name, ())):
+            for stack, st in zip(stacks, state.get(name, ())):
                 for layer, blk in enumerate(stack):
-                    x = blk.decode(x, cache, layer, rope, index(blk, cache))
+                    x = blk.decode(x, st, layer, ropes, index)
         x = rms_norm(x, self.final_norm)
         return self.head(x), state
 
@@ -274,8 +382,11 @@ def _check_cfg(params: DecoderLM, cfg: ModelConfig) -> DecoderLM:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> DecoderLM:
     """The model of `cfg` with weights drawn from a ``torch.Generator``
     seeded with `seed` on `device` (None: the card, raising without one),
-    at the reference's scales (``attention.py:44-61``, ``layers.py:54-83``,
-    ``model.py:124-133``).  The draws differ from jax's for the same seed."""
+    at the reference's scales (``attention.py:44-61``, ``mla.py:46-60``,
+    ``mamba.py:44-60``, ``xlstm.py:47-59`` and ``:195-206``,
+    ``moe.py:45-59``, ``layers.py:54-83``, ``model.py:124-133``), and its
+    constants (norms and biases zero, Mamba's A and dt bias, skip weights
+    one).  The draws differ from jax's for the same seed."""
     dev = resolve_device(device)
     model = DecoderLM(cfg, device=dev)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
@@ -313,7 +424,7 @@ def _xent_from_logits(logits: torch.Tensor,
 
 def loss_fn(params: DecoderLM, cfg: ModelConfig, tokens, targets, *,
             embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token NLL over (B, S) plus the auxiliary loss: a float32
+    """Mean next-token NLL over (B, S) plus the MoE auxiliary loss: a float32
     scalar that autograd differentiates in every parameter.  `tokens` and
     `targets` are (B, S) ints (or `embeddings` (B, S, D) from a frontend
     stub in place of the tokens).
@@ -325,8 +436,7 @@ def loss_fn(params: DecoderLM, cfg: ModelConfig, tokens, targets, *,
     backward instead of kept, so the LogHD head launches twice a chunk (a
     forward and a recomputation)."""
     model = _check_cfg(params, cfg)
-    x = model.backbone(tokens, embeddings)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = model.backbone(tokens, embeddings)
     targets = torch.as_tensor(targets, device=x.device).long()
     b, s, _ = x.shape
     chunk = cfg.loss_chunk
@@ -347,18 +457,38 @@ def loss_fn(params: DecoderLM, cfg: ModelConfig, tokens, targets, *,
     return _xent_from_logits(model.head(x), targets) / (b * s) + aux
 
 
+def _init_block_state(cfg: ModelConfig, blk: BlockSpec, batch: int,
+                      max_len: int, dtype, device, layers: int) -> dict:
+    """One pattern position's zero state, stacked over its `layers`
+    (``model.py:291-305``)."""
+    mc = _mixer_cfg(cfg, blk)
+    key = _mixer_key(blk)
+    if key == "attn":
+        return init_kv_cache(mc, batch, max_len, dtype, device, layers=layers)
+    if key == "mla":
+        return init_mla_cache(mc, batch, max_len, dtype, device,
+                              layers=layers)
+    if key == "mamba":
+        return init_mamba_state(mc, batch, dtype, device, layers=layers)
+    if key == "mlstm":
+        return init_mlstm_state(mc, batch, device, layers=layers)
+    return init_slstm_state(mc, batch, device, layers=layers)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device=None) -> dict:
-    """Zero KV caches in the reference's layout: ``{"prefix": [...],
-    "body": [...]}`` with one ``{"k", "v"}`` pair per pattern position,
-    each (layers, B, L, KV, hd) in the config's dtype ("prefix" only when
-    the config has one)."""
+    """Zero decode states in the reference's layout: ``{"prefix": [...],
+    "body": [...]}`` with one entry per pattern position, stacked over its
+    layers: ``{"k", "v"}`` (layers, B, L, KV, hd) for attention,
+    ``{"c_kv", "k_rope"}`` for MLA, ``{"conv", "ssm"}`` for Mamba, ``{"c",
+    "n", "m"}`` for mLSTM and ``{"c", "n", "m", "h"}`` for sLSTM, caches in
+    the config's dtype ("prefix" only when the config has one)."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
 
     def caches(pattern, layers):
-        return [init_kv_cache(_mixer_cfg(cfg, blk), batch, max_len, dtype,
-                              dev, layers=layers) for blk in pattern]
+        return [_init_block_state(cfg, blk, batch, max_len, dtype, dev,
+                                  layers) for blk in pattern]
 
     state = {}
     if cfg.prefix_pattern:
@@ -370,7 +500,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def decode_step(params: DecoderLM, cfg: ModelConfig, state: dict, tokens,
                 pos, *, embeddings: Optional[torch.Tensor] = None):
-    """One decode step: (logits (B, 1, V) float32, state updated in place)."""
+    """One decode step: (logits (B, 1, V) float32, state updated in place).
+    The MoE capacity counts the step's B tokens, so a step may drop other
+    tokens than ``forward`` over the sequence does (``moe.py:97``)."""
     return _check_cfg(params, cfg).decode_step(state, tokens, pos,
                                                embeddings=embeddings)
 

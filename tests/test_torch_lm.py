@@ -350,11 +350,18 @@ def test_init_params_scales_match_reference_in_distribution():
     assert torch.equal(dense.body[0][1].mlp.wo, model.body[0][1].mlp.wo)
 
 
-def test_unported_mixers_and_ffns_raise():
-    for arch in ("deepseek-v3-671b", "jamba-v0.1-52b", "xlstm-125m",
-                 "granite-moe-1b-a400m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.init_params(pconfigs.get_smoke_config(arch), device="cpu")
+def test_unknown_mixer_raises_and_params_check():
+    """Every shipped config builds; an unknown mixer raises ValueError, as
+    the reference's ``_mixer_cfg`` does; params built for one config
+    refuse another."""
+    for arch in pconfigs.ARCH_NAMES:
+        P.init_params(pconfigs.get_smoke_config(arch), device="cpu")
+    rc, pc = _cfgs("qwen3-1.7b", pattern=(rconfigs.BlockSpec("conv"),))
+    with pytest.raises(ValueError, match="conv"):
+        R.init_params(jax.random.PRNGKey(0), rc)
+    with pytest.raises(ValueError, match="unknown mixer 'conv'"):
+        P.init_params(dataclasses.replace(
+            pc, pattern=(pconfigs.BlockSpec("conv"),)), device="cpu")
     _, pc = _cfgs("qwen3-1.7b")
     model = P.init_params(pc, device="cpu")
     with pytest.raises(ValueError, match="params were built for"):
