@@ -76,7 +76,21 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    CLI's traffic in bf16 with launch counting, a repeat and a profiled
    decode step, and two granite training steps at the training CLI's
    defaults (every parameter's and every expert's gradient nonzero, a
-   positive aux loss).
+   positive aux loss);
+9. slice 13's sharded LM (``phase_lm_sharded``), over an NCCL group of
+   one rank and ``make_debug_mesh()``, the ("data", "model") mesh of
+   (1, 1): 3 steps of ``launch/train.py --mesh debug`` at its defaults
+   with qwen3-1.7b's loghd head against the same steps without the mesh
+   (losses within LT_PLAIN_ATOL, one ``loghd_head`` launch a step, walls
+   and peak bytes both ways), the serving traffic through
+   ``decode_step(..., mesh)`` (the same tokens, one launch a step),
+   granite-moe's expert-parallel decode against the unsharded one, the
+   sequence-sharded flash decode at qwen3's attention widths against the
+   plain decode, the elastic restore of an unsharded checkpoint onto the
+   mesh (qwen3 cut to 2 layers: the first resumed loss equal), and the dry
+   run of ``LS_DRY_CELLS`` in processes of their own under a fake group
+   of 256 / 512 ranks, each cell's bytes a device, FLOPs, collectives and
+   roofline row on this card's published peaks.
 
 It checks each kernel against its plain version (``flip_corrupt`` bit for
 bit, batched over 1 and 18 points at bits 1, 2, 4 and 8 on LogHD's,
@@ -227,17 +241,19 @@ def nvidia_smi() -> str:
 
 
 def card_rates(name: str) -> dict:
-    """Published peaks (NVIDIA data sheets) used for the bounds: memory
-    bytes/s, float32 flop/s outside the tensor cores, int32 op/s (half
-    the float32 rate: Hopper has 64 INT32 and 128 FP32 lanes per SM), and
-    the float32 flop/s of 3xTF32 on the tensor cores (three dense TF32
-    products per float32 one), the units of ``hdc_encode``'s product."""
-    if "PCIe" in name:
-        mem, f32, tf32 = 2.0e12, 51e12, 378e12
-    else:
-        mem, f32, tf32 = 3.35e12, 67e12, 495e12
-    return {"bytes": mem, "float32": f32, "int32": f32 / 2,
-            "tf32x3": tf32 / 3}
+    """Published peaks used for the bounds, from the one table
+    ``repro_torch.launch.roofline.RATES`` (NVIDIA H100 data sheet), which
+    the roofline reads too: memory bytes/s, float32 flop/s outside the
+    tensor cores, int32 op/s (half the float32 rate: Hopper has 64 INT32
+    and 128 FP32 lanes per SM), the float32 flop/s of 3xTF32 on the tensor
+    cores (three dense TF32 products per float32 one), the units of
+    ``hdc_encode``'s product, and the dense bf16 tensor-core and NVLink
+    (per direction) rates."""
+    from repro_torch.launch.roofline import rates
+    r = rates(name)
+    return {"bytes": r["bytes"], "float32": r["float32"],
+            "int32": r["float32"] / 2, "tf32x3": r["tf32"] / 3,
+            "bf16": r["bf16"], "nvlink": r["nvlink"]}
 
 
 def bound_ms(rates: dict, n_bytes: float, n_ops: float, op_type: str):
@@ -2911,6 +2927,440 @@ def phase_lm_archs(torch, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------- slice 13: sharded LM --
+
+# the sharded training run: launch/train.py --mesh debug at its defaults
+LS_STEPS = 3
+LS_CKPT_DIR = ROOT / "build" / "chip_smoke_sharded_ckpt"
+# the elastic restore at full width cut to 2 layers (the checkpoint is then
+# 3 GB instead of 17): written unsharded at step 2, resumed with and
+# without the mesh
+LS_RESTORE_PERIODS = 2
+# granite-moe's expert-parallel decode: teacher-forced steps at B = 4
+LS_EP_STEPS = 8
+# the sequence-sharded flash decode at qwen3's attention widths
+LS_FLASH_CACHE, LS_FLASH_POS = 4096, 3000
+LS_FLASH_TOL = 2e-4
+# the dry run's cells, each in a process of its own (the fake group is
+# process-global): a dense train cell and a MoE decode cell
+LS_DRY_CELLS = (("qwen3-1.7b", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi"))
+LS_DRY_DIR = ROOT / "build" / "chip_smoke_dryrun"
+LS_DRY_TIMEOUT = 900
+LS_PHASE_LIMIT = 150.0
+
+
+def start_dry_runs() -> list:
+    """``python -m repro_torch.launch.dryrun`` for each of LS_DRY_CELLS, in
+    processes of their own, started at once."""
+    import os
+    shutil.rmtree(LS_DRY_DIR, ignore_errors=True)
+    LS_DRY_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mesh in LS_DRY_CELLS:
+        log_path = LS_DRY_DIR / f"{arch}__{shape}__{mesh}.log"
+        procs.append((arch, shape, mesh, log_path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out",
+             str(LS_DRY_DIR)], cwd=ROOT, env=env,
+            stdout=open(log_path, "w"), stderr=subprocess.STDOUT)))
+    return procs
+
+
+def finish_dry_runs(procs: list, kind: str) -> list:
+    """Wait for the dry runs; print each cell's GiB a device, FLOPs,
+    collective bytes by kind and its roofline row on `kind`'s peaks."""
+    from repro_torch.launch import dryrun, roofline
+    rows = []
+    t0 = time.perf_counter()
+    for arch, shape, mesh, log_path, proc in procs:
+        try:
+            code = proc.wait(timeout=max(1.0, LS_DRY_TIMEOUT
+                                         - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            code = None
+        text = log_path.read_text()
+        check(code == 0, f"dry run {arch} x {shape} x {mesh} exited with "
+              f"{code}: {text[-2000:]}")
+        with open(LS_DRY_DIR / f"{arch}__{shape}__{mesh}.json") as f:
+            rec = json.load(f)
+        row = roofline.roofline_cell(rec, kind)
+        log(f"dry run {arch} x {shape} x {mesh} ({rec['n_devices']} fake "
+            f"ranks, layout arithmetic, not a measurement): "
+            f"{dryrun.summary(rec)}")
+        log(f"  roofline on {kind}'s published peaks: " + roofline.HEADER)
+        log(f"  roofline on {kind}'s published peaks: "
+            + roofline.row_text(row))
+        check(rec["memory"]["per_device_total_bytes"] > 0
+              and rec["collectives"]["total_bytes"] > 0
+              and row["T_compute_s"] > 0,
+              f"dry run {arch} x {shape} x {mesh}: an empty record {rec}")
+        rows.append(dict(record=rec, roofline=row))
+    return rows
+
+
+def ls_train(torch, dev, mesh) -> dict:
+    """LS_STEPS steps of ``launch/train.py --mesh debug`` at its defaults
+    (batch 8 x 128, seed 0) with qwen3-1.7b's loghd head (the config the
+    CLI reads is patched to ``lm_config()``), against the same steps
+    without the mesh (``train_losses``): losses, each step's wall and
+    loghd_head launches, peak allocated bytes."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels import common
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import train_loop
+    cfg = lm_config()
+    torch.cuda.empty_cache()
+    flat = train_losses(torch, dev, cfg, steps=LS_STEPS)
+    flat = {k: flat[k] for k in ("losses", "walls", "per_step", "peak")}
+    torch.cuda.empty_cache()
+    walls, per_step = [], []
+    real_make, real_get = train_loop.make_train_step, configs.get_config
+
+    def timed_make(*args, **kw):
+        step_fn = real_make(*args, **kw)
+
+        def step(*a):
+            before = common.launches["loghd_head"]
+            t0 = time.perf_counter()
+            out = step_fn(*a)
+            out[2].item()
+            walls.append(time.perf_counter() - t0)
+            per_step.append(common.launches["loghd_head"] - before)
+            return out
+        return step
+
+    shutil.rmtree(LS_CKPT_DIR, ignore_errors=True)
+    train_loop.make_train_step = timed_make
+    configs.get_config = lambda name, **kw: (
+        cfg if name == LM_ARCH else real_get(name, **kw))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        out = train_cli.main(["--arch", LM_ARCH, "--steps", str(LS_STEPS),
+                              "--mesh", "debug", "--ckpt-dir",
+                              str(LS_CKPT_DIR), "--ckpt-every", "1000"])
+        wall = time.perf_counter() - t0
+        launches = dict(common.launches)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        train_loop.make_train_step = real_make
+        configs.get_config = real_get
+    placed = out["params"].embed.table
+    check(shd_mesh_names(placed) == ("data", "model"),
+          f"the CLI's model is not on the debug mesh: {type(placed)}")
+    del out["params"]
+    written = dir_bytes(LS_CKPT_DIR)
+    shutil.rmtree(LS_CKPT_DIR)
+    torch.cuda.empty_cache()
+    diff = max(abs(a - b) for a, b in zip(out["losses"], flat["losses"]))
+    log(f"LM sharded train {cfg.name} head {cfg.head} on the debug mesh "
+        f"{mesh.shape} ({LS_STEPS} steps of launch/train.py --mesh debug, "
+        f"batch {LT_BATCH} x {LT_SEQ}): losses "
+        + " ".join(f"{x:.5f}" for x in out["losses"])
+        + " against " + " ".join(f"{x:.5f}" for x in flat["losses"])
+        + f" without the mesh (max diff {diff:.3e}, bound {LT_PLAIN_ATOL}); "
+        f"step walls " + " ".join(f"{w * 1e3:.1f}" for w in walls)
+        + " ms against " + " ".join(f"{w * 1e3:.1f}" for w in flat["walls"])
+        + f" ms; peak allocated {peak} B against {flat['peak']} B; "
+        f"loghd_head a step {per_step}; the CLI took {wall:.2f} s with its "
+        f"{written} B checkpoint; launches {launches}")
+    check(diff <= LT_PLAIN_ATOL, f"sharded losses {out['losses']} against "
+          f"{flat['losses']}")
+    check(per_step == [1] * LS_STEPS, f"loghd_head launches a sharded "
+          f"step: {per_step}")
+    check(launches == {"loghd_head": LS_STEPS}, f"kernels launched on the "
+          f"sharded training path: {launches}")
+    return dict(losses=out["losses"], flat_losses=flat["losses"],
+                walls=walls, flat_walls=flat["walls"], peak=peak,
+                flat_peak=flat["peak"], launches=launches, diff=diff,
+                cli_s=wall, ckpt_bytes=written)
+
+
+def shd_mesh_names(t) -> tuple:
+    from repro_torch.models import sharding as shd
+    return tuple(t.device_mesh.mesh_dim_names) if shd.is_dtensor(t) else ()
+
+
+def ls_serve(torch, dev, mesh) -> dict:
+    """The serving CLI's traffic (``launch/serve.py``'s requests, 4 slots,
+    16 new tokens) through ``decode_step`` with and without the mesh on
+    one bf16 qwen3-1.7b (loghd head), laid on the mesh between the runs:
+    the same tokens, one loghd_head launch a decode step, and a decode
+    step's median wall each way."""
+    import numpy as np
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import requests_for
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as shd
+    from repro_torch.runtime import serve_loop
+    cfg = lm_config()
+    model = M.init_params(cfg, seed=0, device=dev)
+    reqs = requests_for(cfg, 6, seed=0)
+    serve = serve_loop.ServeLoopConfig(batch_slots=4, max_new_tokens=16,
+                                       max_len=256)
+    g = torch.Generator(device=dev).manual_seed(11)
+    tok = torch.randint(0, cfg.vocab, (4, 1), generator=g, device=dev)
+    pos = torch.tensor([5, 9, 17, 33], device=dev)
+
+    def step_wall(use_mesh) -> float:
+        state = M.init_decode_state(cfg, 4, 256, device=dev)
+        walls = []
+        for _ in range(11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M.decode_step(model, cfg, state, tok, pos, use_mesh)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls[1:]) * 1e3
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = serve_loop.run_serving(cfg, model, reqs, serve)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t0
+    flat_ms = step_wall(None)
+    shd.shard_model(model, mesh)
+    real, steps = serve_loop.decode_step, [0]
+
+    def meshed(params, cfg_, state, tokens, p, *a, **kw):
+        steps[0] += 1
+        logits, state = real(params, cfg_, state, tokens, p, mesh)
+        return logits.full_tensor(), state
+
+    serve_loop.decode_step = meshed
+    try:
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        toks = serve_loop.run_serving(cfg, model, reqs, serve)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(common.launches)
+    finally:
+        serve_loop.decode_step = real
+    mesh_ms = step_wall(mesh)
+    same = all(np.array_equal(toks[u], flat[u]) for u in flat)
+    n_tok = sum(len(v) for v in toks.values())
+    log(f"LM sharded serve {cfg.name} bf16 head loghd on the debug mesh: "
+        f"{len(toks)} requests, {n_tok} tokens, {steps[0]} decode steps in "
+        f"{wall:.3f} s ({n_tok / wall:.1f} tokens/s) against {flat_s:.3f} s "
+        f"without the mesh; the same tokens: {same}; a decode step's wall "
+        f"(B = 4, median of 10) {mesh_ms:.3f} ms on the mesh against "
+        f"{flat_ms:.3f} ms; launches {launches}")
+    check(same, "the sharded decode served other tokens than the unsharded")
+    check(launches == {"loghd_head": steps[0]}, f"loghd_head launches over "
+          f"{steps[0]} sharded decode steps: {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steps=steps[0], wall_s=wall,
+                flat_wall_s=flat_s, step_ms=mesh_ms, flat_step_ms=flat_ms,
+                tokens_per_s=n_tok / wall)
+
+
+def ls_granite(torch, dev, mesh) -> dict:
+    """granite-moe-1b-a400m at full width (bf16, loghd head) decoded
+    teacher-forced for LS_EP_STEPS steps at B = 4 through the expert-
+    parallel MoE (``moe_block`` on the mesh: the all_to_all to the
+    experts' owners and back on the "model" group) against the same steps
+    without the mesh, within the loghd head's bf16 bound (LH_TOL)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as shd
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              head="loghd")
+    model = M.init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab, (4, LS_EP_STEPS), generator=g,
+                           device=dev)
+
+    def run(use_mesh):
+        state = M.init_decode_state(cfg, 4, 64, device=dev)
+        outs = []
+        for t in range(LS_EP_STEPS):
+            lg, state = M.decode_step(model, cfg, state,
+                                      tokens[:, t:t + 1], t, use_mesh)
+            outs.append(shd.full(lg)[:, 0].float())
+        torch.cuda.synchronize()
+        return torch.stack(outs, 1)
+
+    want = run(None)
+    shd.shard_model(model, mesh)
+    common.reset_launches()
+    got = run(mesh)
+    launches = dict(common.launches)
+    err = max_err(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    tol = LH_TOL["bfloat16"]
+    log(f"LM sharded decode {cfg.name} (bf16, loghd head, {cfg.n_experts} "
+        f"experts over 'model'): {LS_EP_STEPS} steps at B = 4: max_abs_err "
+        f"{err:.3e} against the unsharded decode (bound {tol}), argmax "
+        f"agrees on {agree:.4f}; launches {launches}")
+    check(bool(torch.isfinite(got).all()), "granite EP logits not finite")
+    torch.testing.assert_close(got, want, **tol)
+    check(launches == {"loghd_head": LS_EP_STEPS}, f"loghd_head launches "
+          f"over {LS_EP_STEPS} expert-parallel decode steps: {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=err, agree=agree)
+
+
+def ls_flash(torch, dev, mesh) -> float:
+    """``decode_attention_seqsharded`` at qwen3-1.7b's attention widths
+    (16 heads, 8 KV heads of 128, qk-norm) over a float32 cache of
+    LS_FLASH_CACHE positions at B = 4, on the mesh's "data" axis, against
+    ``Attention.decode`` on a copy of the same cache: max abs error, and
+    the two caches equal after the write."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import (Attention, DecodeIndex,
+                                              decode_attention_seqsharded)
+    from repro_torch.models.layers import rope_table
+    from repro_torch.models.model import _mixer_cfg
+    cfg = get_config(LM_ARCH)
+    acfg = _mixer_cfg(cfg, cfg.pattern[0])
+    g = torch.Generator(device=dev).manual_seed(13)
+    attn = Attention(acfg, device=dev, dtype=torch.float32)
+    attn.init_weights(g)
+    shape = (4, LS_FLASH_CACHE, acfg.n_kv_heads, acfg.head_dim)
+    cache = {k: torch.randn(shape, generator=g, device=dev) for k in "kv"}
+    plain = {k: v.clone() for k, v in cache.items()}
+    x = torch.randn((4, 1, acfg.d_model), generator=g, device=dev)
+    with torch.no_grad():
+        got, _ = decode_attention_seqsharded(attn, x, cache, LS_FLASH_POS,
+                                             axis="data", mesh=mesh)
+        pos = torch.full((4,), LS_FLASH_POS, device=dev)
+        want = attn.decode(x, plain["k"], plain["v"],
+                           rope_table(pos[:, None], acfg.head_dim,
+                                      acfg.rope_theta),
+                           DecodeIndex.of(pos, LS_FLASH_CACHE, False))
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    same = all(torch.equal(cache[k], plain[k]) for k in "kv")
+    log(f"LM flash decode (sequence-sharded over 'data' of "
+        f"{mesh.shape['data']}) at {LM_ARCH}'s widths, cache {shape} "
+        f"float32, pos {LS_FLASH_POS}: max_abs_err {err:.3e} against the "
+        f"plain decode (bound {LS_FLASH_TOL}); caches equal after the "
+        f"write: {same}")
+    torch.testing.assert_close(got, want, rtol=LS_FLASH_TOL,
+                               atol=LS_FLASH_TOL)
+    check(same, "the flash decode wrote its cache otherwise")
+    return err
+
+
+def ls_restore(torch, dev, mesh) -> dict:
+    """The elastic restore: qwen3-1.7b (loghd head, bf16) at full width cut
+    to LS_RESTORE_PERIODS layers trains 2 steps unsharded and writes its
+    checkpoint; the run resumes for one step without the mesh and, from a
+    copy, on the mesh (the checkpoint laid onto it by
+    ``restore_checkpoint(..., shardings=)``).  The resumed runs' own final
+    checkpoints are not written (the checkpointer's save is patched out):
+    the restore is what is checked.  The first resumed losses agree."""
+    import dataclasses
+    from repro_torch.kernels import common
+    from repro_torch.runtime import train_loop
+    cfg = dataclasses.replace(lm_config(), n_periods=LS_RESTORE_PERIODS)
+    base = LS_CKPT_DIR.parent / "chip_smoke_restore"
+    shutil.rmtree(base, ignore_errors=True)
+    loop = dict(total_steps=3, ckpt_every=1000, warmup_steps=10,
+                peak_lr=3e-4)
+    train_loop.run_training(cfg, loop=train_loop.TrainLoopConfig(
+        ckpt_dir=str(base / "flat"), **loop), device=dev, stop_after=2)
+    written = dir_bytes(base / "flat")
+    shutil.copytree(base / "flat", base / "mesh")
+    real = train_loop.AsyncCheckpointer
+
+    class Unsaved(real):
+        def save(self, step, tree):
+            pass
+
+    train_loop.AsyncCheckpointer = Unsaved
+    try:
+        flat = train_loop.run_training(cfg, loop=train_loop.TrainLoopConfig(
+            ckpt_dir=str(base / "flat"), **loop), device=dev)
+        common.reset_launches()
+        meshed = train_loop.run_training(
+            cfg, mesh=mesh, loop=train_loop.TrainLoopConfig(
+                ckpt_dir=str(base / "mesh"), **loop), device=dev)
+        launches = dict(common.launches)
+    finally:
+        train_loop.AsyncCheckpointer = real
+    shutil.rmtree(base)
+    placed = shd_mesh_names(meshed["params"].embed.table)
+    log(f"LM elastic restore {cfg.name} at {cfg.n_layers} layers: a "
+        f"{written} B unsharded checkpoint of step 2 resumed at step "
+        f"{meshed['first_step']} on the debug mesh ({placed}): loss "
+        f"{meshed['losses'][0]:.6f} against {flat['losses'][0]:.6f} "
+        f"without the mesh; launches {launches}")
+    check(meshed["resumed"] and flat["resumed"]
+          and meshed["first_step"] == flat["first_step"] == 2,
+          "the elastic restore did not resume at step 2")
+    check(placed == ("data", "model"), "the restored model is not sharded")
+    check(abs(meshed["losses"][0] - flat["losses"][0])
+          <= LT_RESUME_RTOL * abs(flat["losses"][0]),
+          f"resumed losses {meshed['losses']} against {flat['losses']}")
+    check(launches == {"loghd_head": 1}, f"kernels launched on the restored "
+          f"step: {launches}")
+    del meshed, flat
+    torch.cuda.empty_cache()
+    return dict(launches=launches, bytes=written)
+
+
+def phase_lm_sharded(torch, dev) -> dict:
+    """Slice 13: the LM's multi-device layout on the card, over an NCCL
+    group of one rank and ``make_debug_mesh()`` (the ("data", "model")
+    mesh of (1, 1)): ``launch/train.py --mesh debug`` (``ls_train``), the
+    serving traffic through ``decode_step(..., mesh)`` (``ls_serve``),
+    granite-moe's expert-parallel decode (``ls_granite``), the
+    sequence-sharded flash decode (``ls_flash``), the elastic restore
+    (``ls_restore``), and the dry run of two production-mesh cells in
+    processes of their own, started first (``start_dry_runs``).  The
+    group is destroyed at the end, whatever happened."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    t_phase = time.perf_counter()
+    procs = start_dry_runs()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_debug_mesh(dev)
+        check(mesh.axis_names == ("data", "model")
+              and mesh.shape == {"data": 1, "model": 1}
+              and mesh.device_mesh is not None
+              and mesh.device_type == "cuda",
+              f"the debug mesh: {mesh}")
+        out = {}
+        for name, fn in (("train", ls_train), ("serve", ls_serve),
+                         ("granite", ls_granite), ("flash", ls_flash),
+                         ("restore", ls_restore)):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, dev, mesh)
+            log(f"LM sharded {name}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+        for *_, proc in procs:
+            if proc.poll() is None and sys.exc_info()[0] is not None:
+                proc.kill()
+    out["dry_run"] = finish_dry_runs(procs, torch.cuda.get_device_name(0))
+    phase_s = time.perf_counter() - t_phase
+    log(f"slice 13 LM sharded phase: {phase_s:.1f} s (limit "
+        f"{LS_PHASE_LIMIT:.0f} s)")
+    check(phase_s <= LS_PHASE_LIMIT, f"the sharded phase took {phase_s:.1f} s")
+    return out
+
+
 def phase_fit_profile(torch, mm: dict) -> dict:
     """Where the LogHD fit's time goes: one Eq. 9 epoch (98 minibatch
     steps) on the host clock and on the device (torch.profiler), the
@@ -3457,6 +3907,7 @@ def main() -> int:
     lm = phase_lm(torch, dev)
     lm_train = phase_lm_train(torch, dev)
     lm_archs = phase_lm_archs(torch, dev)
+    lm_sharded = phase_lm_sharded(torch, dev)
     times = phase_times(torch, main_run, mm, lm, rates)
 
     # launches of every path's run: slice 1's LogHD path, the shared
@@ -3486,6 +3937,11 @@ def main() -> int:
                         for head in ("loghd", "dense") if head in r})
         if "train" in r:
             by_path[f"lm_train_{arch}"] = r["train"]["launches"]
+    # slice 13's sharded paths on the debug mesh: the training CLI, the
+    # serving traffic, granite-moe's expert-parallel decode, the restored
+    # step
+    by_path.update({f"lm_sharded_{name}": lm_sharded[name]["launches"]
+                    for name in ("train", "serve", "granite", "restore")})
     # bundle_sim's launches of each path, in serving buckets (at most
     # MAX_BATCH rows) and in larger batches
     none = {"bucket": 0, "full": 0}

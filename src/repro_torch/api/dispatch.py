@@ -38,6 +38,7 @@ from repro_torch.kernels.bundle_update.ops import bundle_update
 from repro_torch.kernels.bundle_update.ref import bundle_update_ref
 from repro_torch.kernels.flip_corrupt.ops import flip_corrupt_grid
 from repro_torch.kernels.loghd_head.ops import loghd_head_autograd
+from repro_torch.kernels.loghd_head.ref import loghd_head_logits_ref
 from repro_torch.kernels.profile_decode.ops import profile_decode_scores
 from repro_torch.precision import full_f32
 
@@ -124,8 +125,13 @@ def loghd_head_scores(x: torch.Tensor, bundles: torch.Tensor,
     kernel's, not the JAX package's CPU path's."""
     lead = x.shape[:-1]
     h = x.reshape(-1, x.shape[-1]).contiguous()
-    out = loghd_head_autograd(h, bundles.contiguous(),
-                              profiles.contiguous())
+    if h.is_meta:
+        # the dry run's meta tensors hold no data: the plain expression
+        # gives the logits' shape (and its FLOPs to a counter)
+        out = loghd_head_logits_ref(h, bundles, profiles)
+    else:
+        out = loghd_head_autograd(h, bundles.contiguous(),
+                                  profiles.contiguous())
     return out.reshape(*lead, profiles.shape[0])
 
 

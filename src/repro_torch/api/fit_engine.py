@@ -127,8 +127,9 @@ def _pad_rows_to(arrs, multiple: int):
     return tuple(pad_rows(a, total) for a in arrs)
 
 
-def _dp_layout(mesh: Optional[ClassMesh], axis: str, batch_size: int):
-    mesh = make_debug_mesh() if mesh is None else mesh
+def _dp_layout(mesh: Optional[ClassMesh], axis: str, batch_size: int,
+               device):
+    mesh = make_debug_mesh(device) if mesh is None else mesh
     n_shards = int(mesh.shape[axis])
     return mesh, n_shards, max(1, int(batch_size) // n_shards)
 
@@ -140,14 +141,16 @@ def fused_onlinehd_fit_dp(protos: torch.Tensor, h: torch.Tensor, y, *,
                           axis: str = "data",
                           compress: Optional[str] = "int8") -> torch.Tensor:
     """Data-parallel OnlineHD fit: examples split over the mesh's `axis`
-    shards (default ``make_debug_mesh()``, one shard a rank).
+    shards (default ``make_debug_mesh`` on h's device, one shard a
+    rank).
 
     Each global step takes ``batch_size // shards`` rows of every shard, in
     order; the deltas are summed exactly (``compress=None``) or through the
     int8 error feedback (``"int8"``) before the shared normalisation."""
     if epochs <= 0:
         return protos
-    mesh, n_shards, local_bs = _dp_layout(mesh, axis, batch_size)
+    mesh, n_shards, local_bs = _dp_layout(mesh, axis, batch_size,
+                                          h.device)
     y = torch.as_tensor(y, device=h.device).to(torch.int64)
     h, y = _pad_rows_to((h, y), n_shards * local_bs)
     n_local = h.shape[0] // n_shards
@@ -203,7 +206,8 @@ def fused_refine_bundles_dp(bundles: torch.Tensor, h: torch.Tensor, y,
     are summed as in ``fused_onlinehd_fit_dp``."""
     if epochs <= 0:
         return bundles
-    mesh, n_shards, local_bs = _dp_layout(mesh, axis, batch_size)
+    mesh, n_shards, local_bs = _dp_layout(mesh, axis, batch_size,
+                                          h.device)
     y = torch.as_tensor(y, device=h.device).to(torch.int64)
     targets_y = symbol_targets(codebook, k).to(h.device)[y]
     h, targets_y = _pad_rows_to((h, targets_y), n_shards * local_bs)

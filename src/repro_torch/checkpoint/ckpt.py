@@ -1,6 +1,7 @@
 """Atomic checkpoints in the JAX package's on-disk layout (port of
 ``repro.checkpoint.ckpt``; a class-sharded model's elastic restore is
-``api.checkpointing.load_model``, which keeps each rank's rows).
+``api.checkpointing.load_model``, which keeps each rank's rows, an LM
+tree's is ``restore_checkpoint(..., shardings=)``).
 
 Layout:  <dir>/step_<N>/
             manifest.json          — tree structure, shapes, dtypes
@@ -267,11 +268,37 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, target: Any, *,
-                       device=None) -> Any:
+def _flatten_up_to(target, shardings) -> list:
+    """`shardings`' entries at `target`'s leaves, in ``_flatten`` order
+    (None where `shardings` has none)."""
+    if shardings is None:
+        return [None] * len(_flatten(target))
+    if target is None:
+        return []
+    if isinstance(target, dict):
+        return [x for k in sorted(target)
+                for x in _flatten_up_to(target[k], shardings.get(k))]
+    if isinstance(target, (list, tuple)) and not isinstance(target,
+                                                            LeafSpec):
+        return [x for t, sh in zip(target, shardings)
+                for x in _flatten_up_to(t, sh)]
+    if _node(target) is not None:
+        return [None] * len(_flatten(target))
+    return [shardings]
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, target: Any,
+                       shardings: Any = None, *, device=None) -> Any:
     """Restore into the structure of `target`, whose array leaves may be
     tensors, numpy arrays or ``LeafSpec``s; array leaves come back as
-    tensors on `device` (None means "cuda") with the dtypes on disk."""
+    tensors on `device` (None means "cuda") with the dtypes on disk.
+
+    `shardings` (the structure of `target`, leaves
+    ``models.sharding.NamedSharding`` or None) makes it an ELASTIC
+    restore: each such leaf is read whole from the reference's layout and
+    laid onto its mesh as a DTensor, this rank keeping its shard, so a
+    checkpoint written unsharded (or by the JAX package) restores onto any
+    mesh, and one written from a mesh (gathered) back onto none."""
     device = resolve_device(device)
     path, manifest = _manifest(ckpt_dir, step)
     t_leaves = _flatten(target)
@@ -279,8 +306,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, target: Any, *,
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves; target has "
             f"{len(t_leaves)} — structure mismatch")
+    s_leaves = _flatten_up_to(target, shardings)
     out = []
-    for i, (meta, tgt) in enumerate(zip(manifest["leaves"], t_leaves)):
+    for i, (meta, tgt, sh) in enumerate(zip(manifest["leaves"], t_leaves,
+                                            s_leaves)):
         if meta["kind"] == "scalar":
             out.append(meta["value"])
             continue
@@ -290,5 +319,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, target: Any, *,
         if tuple(leaf.shape) != expect:
             raise ValueError(f"leaf {i}: ckpt shape {tuple(leaf.shape)} != "
                              f"target {expect}")
+        if sh is not None:
+            from repro_torch.models.sharding import distribute
+            leaf = distribute(leaf, sh.mesh, sh.spec)
         out.append(leaf)
     return _unflatten(target, iter(out))

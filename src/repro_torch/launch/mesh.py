@@ -1,9 +1,22 @@
-"""Shard layouts over ``torch.distributed`` (port of ``repro.launch.mesh``).
+"""Meshes over ``torch.distributed`` (port of ``repro.launch.mesh``).
 
-The JAX package lays its shards one to a device of a ``jax.sharding.Mesh``.
-Here a mesh is a logical grid of shards, ``shape = {"data": Dp, "class":
-S}`` (the reference's mesh shape), laid over the ranks of the initialised
-process group:
+Two kinds of mesh, as in the reference:
+
+  * the LM's meshes (``make_production_mesh``, ``make_debug_mesh``): a
+    ``Mesh`` that wraps a ``torch.distributed.device_mesh.DeviceMesh``
+    with the reference's axis names and shapes, (16, 16) ``("data",
+    "model")`` for one pod, (2, 16, 16) ``("pod", "data", "model")`` for
+    two, (world, 1) ``("data", "model")`` for a debug run.  One rank
+    holds one device of the mesh; ``models/sharding.py`` lays the LM's
+    parameters over it as DTensors.  It answers ``shape[axis]``,
+    ``group(axis)`` and ``blocks(axis)`` as ``ClassMesh`` does, so the
+    data-parallel fits take either;
+  * the class-sharded estimator's ``ClassMesh`` below.
+
+The JAX package lays its class shards one to a device of a
+``jax.sharding.Mesh``.  Here a ``ClassMesh`` is a logical grid of shards,
+``shape = {"data": Dp, "class": S}`` (the reference's mesh shape), laid
+over the ranks of the initialised process group:
 
   * W ranks form a (replica, data, class) grid of (W_r, W_d, W_c) with
     W_c = gcd(S, W) and W_d = gcd(Dp, W / W_c); the class axis takes the
@@ -17,7 +30,8 @@ Without a process group one rank holds every shard and no collective is
 called, so one card runs S = 8 and Dp = 2 with the same code path; with a
 group, the collectives are called even at world 1.  ``torchrun`` (or
 ``init_process_group`` with an explicit address, world size and rank)
-sets the group up; nothing here initialises one.
+sets the group up; nothing here initialises one, and an LM mesh needs one
+(``init_device_mesh`` does, even at world 1).
 """
 
 from __future__ import annotations
@@ -26,10 +40,15 @@ import collections
 import dataclasses
 import math
 
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 
-__all__ = ["ClassMesh", "make_class_mesh", "make_debug_mesh", "distributed",
+from repro_torch.kernels.common import resolve_device
+
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "ClassMesh",
+           "make_class_mesh", "make_debug_mesh", "distributed",
            "world_size", "rank", "all_reduce_sum", "all_gather_stack",
            "group_size", "collectives"]
 
@@ -77,6 +96,80 @@ def all_gather_stack(t: torch.Tensor, group) -> torch.Tensor:
     dist.all_gather(parts, t, group=group)
     collectives["all_gather"] += 1
     return torch.stack(parts)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """An LM mesh: named axes over a ``DeviceMesh`` (None without a
+    process group, where one rank holds the whole (1, 1) mesh and no
+    collective is made).
+
+    ``shape`` maps each axis to its size, in ``axis_names`` order (the
+    counterpart of ``jax.sharding.Mesh.shape``); ``group(axis)`` is the
+    axis's process group, ``coord(axis)`` this rank's index along it and
+    ``blocks(axis)`` the shards it holds (one; the dp fits read it)."""
+
+    device_mesh: Optional[object]
+    axis_names: tuple
+    shape: dict
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def device_type(self) -> str:
+        return self.device_mesh.device_type if self.device_mesh else "cpu"
+
+    def dim(self, axis: str) -> int:
+        """The mesh dimension of `axis`."""
+        return self.axis_names.index(axis)
+
+    def group(self, axis: str):
+        if self.device_mesh is None:
+            return None
+        return self.device_mesh.get_group(axis)
+
+    def coord(self, axis: str) -> int:
+        if self.device_mesh is None:
+            return 0
+        return self.device_mesh.get_local_rank(axis)
+
+    def blocks(self, axis: str) -> range:
+        c = self.coord(axis)
+        return range(c, c + 1)
+
+
+def make_mesh(shape: tuple, axes: tuple, device=None) -> Mesh:
+    """An LM mesh of `shape` with the axis names `axes` over the process
+    group's ranks (``init_device_mesh``, every rank calling it), on
+    `device`'s type (None: the card); without a process group only the
+    one-rank mesh, which holds every shard (the counterpart of
+    ``jax.make_mesh``)."""
+    if not distributed():
+        if math.prod(shape) != 1:
+            raise RuntimeError(
+                f"a {shape} {axes} mesh needs an initialised process group "
+                f"of {math.prod(shape)} ranks")
+        return Mesh(None, axes, dict(zip(axes, shape)))
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh(resolve_device(device).type, shape,
+                          mesh_dim_names=axes)
+    return Mesh(dm, axes, dict(zip(axes, shape)))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """16 x 16 = 256 ranks ("data", "model"); `multi_pod` adds the 2-pod
+    axis (512 ranks).  Needs a process group of that world size (the dry
+    run's fake group gives one on the host); `device` ("cpu" or "cuda",
+    None: the card) is the device type the ranks' shards live on."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if world_size() != math.prod(shape):
+        raise RuntimeError(f"the production mesh {shape} needs "
+                           f"{math.prod(shape)} ranks, the group has "
+                           f"{world_size()}")
+    return make_mesh(shape, axes, device)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -149,6 +242,9 @@ def make_class_mesh(n_class_shards: int, n_data_shards: int = 1) -> ClassMesh:
     return ClassMesh(shape, grid, coords, groups)
 
 
-def make_debug_mesh() -> ClassMesh:
-    """Every rank on the data axis: (data = W shards, class = 1)."""
-    return make_class_mesh(1, world_size())
+def make_debug_mesh(device=None) -> Mesh:
+    """The smallest honest LM mesh: ("data", "model") of (world, 1), every
+    rank on the data axis, on `device`'s type (None: the card).  Without a
+    process group it is the (1, 1) mesh of one rank holding every shard,
+    with no ``DeviceMesh`` and no collective."""
+    return make_mesh((world_size(), 1), ("data", "model"), device)

@@ -7,16 +7,49 @@ unless ``--device cpu``.
 The loop resumes from the newest committed checkpoint in ``--ckpt-dir``
 (default: ``repro_ckpt`` under the temporary directory), so a scheduler
 may kill and restart the job freely; a straggler abort exits with status
-75 (EX_TEMPFAIL) for the scheduler to reschedule it elsewhere.  One
-process and one device: ``--mesh debug`` and ``--mesh production`` raise
-until the LM sharding rules are ported (ROADMAP queue 1, item 5).
+75 (EX_TEMPFAIL) for the scheduler to reschedule it elsewhere.
+
+``--mesh debug`` trains on the ("data", "model") mesh of (world, 1),
+``--mesh production`` on the (16, 16) one (256 ranks), laid out by
+``models/sharding.py``.  Under ``torchrun`` the ranks join the group it
+sets up (``env://``); a single process makes a group of one rank itself
+(NCCL on the card, gloo with ``--device cpu``):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+      --smoke --steps 2 --mesh debug --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import socket
 import sys
+
+
+def _join_group(device) -> bool:
+    """Initialise the default process group unless there is one: from
+    ``torchrun``'s environment, else a group of this process alone on a
+    free local port.  True when this call made it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.common import resolve_device
+    if dist.is_initialized():
+        return False
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+        return True
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    return True
 
 
 def main(argv=None) -> dict:
@@ -45,22 +78,30 @@ def main(argv=None) -> dict:
                                                 TrainLoopConfig,
                                                 run_training)
 
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the LM sharding rules (models/sharding.py)"
-            f" and the production mesh are not ported yet (ROADMAP queue 1,"
-            f" item 5)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     extra = {"ckpt_dir": args.ckpt_dir} if args.ckpt_dir else {}
     loop = TrainLoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                            peak_lr=args.peak_lr,
                            microbatches=args.microbatches, **extra)
+    made = False
+    mesh = None
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import (make_debug_mesh,
+                                             make_production_mesh)
+        made = _join_group(args.device)
+        mesh = (make_debug_mesh(args.device) if args.mesh == "debug"
+                else make_production_mesh(device=args.device))
     try:
-        out = run_training(cfg, loop=loop, global_batch=args.global_batch,
+        out = run_training(cfg, mesh=mesh, loop=loop,
+                           global_batch=args.global_batch,
                            seq_len=args.seq_len, device=args.device)
     except StragglerAbort as e:
         logging.error("straggler abort: %s", e)
         sys.exit(75)  # EX_TEMPFAIL: the scheduler should reschedule
+    finally:
+        if made:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     if out["losses"]:
         logging.info("done on %s: resumed=%s loss %.4f -> %.4f",
                      out["params"].device, out["resumed"], out["losses"][0],

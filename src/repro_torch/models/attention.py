@@ -1,6 +1,7 @@
-"""GQA / MHA attention: full causal, sliding-window (two-block banded) and
-one-token decode against a KV cache with per-slot positions (port of
-``repro.models.attention`` without ``decode_attention_seqsharded``).
+"""GQA / MHA attention: full causal, sliding-window (two-block banded),
+one-token decode against a KV cache with per-slot positions, and the
+sequence-sharded flash decode of long contexts (port of
+``repro.models.attention``).
 
 Variants: grouped KV heads, qk-norm (per-head RMSNorm on q and k before the
 rotation), QKV bias, and the sliding window of local layers.
@@ -15,6 +16,12 @@ each chunk recomputed in the backward when autograd records.
 
 The decode cache is updated in place: a step writes its token's k and v
 into the cache tensors it is given (the reference returns a new cache).
+
+Under a context mesh (``models/sharding.py``) the activations are
+DTensors: the reference's hints pin q, k, v and the logits to the head
+axis on "model" where the head count divides it, else to the query
+sequence (``_attn_axis``), and a cache sharded over batch, heads or
+sequence takes each token's k and v on the rank that holds its slot.
 """
 
 from __future__ import annotations
@@ -27,10 +34,14 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import norm_scale, normal_, rms_norm, rotate
+from repro_torch.models import sharding as shd
+from repro_torch.models.layers import (norm_scale, normal_, rms_norm,
+                                       rope_table, rotate)
+from repro_torch.models.sharding import fsdp, hint
 
 NEG_INF = -2.0 ** 30
 ATTN_CHUNK = 512  # q-chunk size for memory-efficient attention
+_DP = ("pod", "data")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,16 +62,87 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     return k if groups == 1 else torch.repeat_interleave(k, groups, dim=2)
 
 
+def split_heads(t, heads: int):
+    """(B, S, heads * hd) -> (B, S, heads, hd), hinted heads-on-"model";
+    a DTensor whose head count does not divide the model axis is first
+    gathered along its last dim (a head may not straddle shards)."""
+    b, s_, width = t.shape
+    mesh = shd.mesh_of(t)
+    if mesh is not None and heads % mesh.shape.get("model", 1):
+        t = hint(t, _DP, None, None)
+    return hint(t.reshape(b, s_, heads, width // heads),
+                _DP, None, "model", None)
+
+
+def _attn_axis(h: int, q) -> str:
+    """Shard the (B, H, S, T) attention intermediates on "model" via the
+    HEAD axis when the head count divides the mesh (cheap), else via the
+    QUERY SEQ axis (e.g. qwen1.5's 20 heads on a 16-way model axis); "none"
+    for a plain q."""
+    mesh = shd.mesh_of(q)
+    if mesh is None or "model" not in mesh.axis_names:
+        return "none"
+    return "heads" if h % mesh.shape["model"] == 0 else "seq"
+
+
 def _softmax_pv(logits: torch.Tensor, v: torch.Tensor,
                 eq: str) -> torch.Tensor:
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum(eq, probs, v)
 
 
+def _heads_local(q, k, v, kv_whole: bool):
+    """The shard-local q, k, v of a body split like q (batch over the dp
+    axes, heads or query sequence over "model"): k and v with their heads
+    grouped under this rank's query heads (the whole k, v taken where
+    their heads are not split with q's)."""
+    split = [p.is_shard() for p in q.placements]
+    ql = q.to_local()
+    kl, vl = shd.local_grads(k, split), shd.local_grads(v, split)
+    groups = q.shape[2] // k.shape[2]
+    if kv_whole and ql.shape[2] != q.shape[2]:
+        h0, hl = shd.shard_offset(q, 2), ql.shape[2]
+        kl = _repeat_kv(kl, groups)[:, :, h0:h0 + hl]
+        vl = _repeat_kv(vl, groups)[:, :, h0:h0 + hl]
+    return ql, kl, vl
+
+
+def _from_local_like(out, q):
+    """A body's (B, S, H * hd) output as a DTensor laid out as q (B, S, H,
+    hd): the heads' shard is a contiguous block of the last dim."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
+
+
+def _sdpa_sharded(q, k, v, scale: float, causal: bool, chunk: int):
+    """``_sdpa`` on DTensors as a shard-local body: q laid out with the
+    batch over the dp axes and the heads over "model" where they divide
+    it, else the query sequence (``_attn_axis``); k and v with q's batch,
+    and their heads over "model" where both head counts divide it, else
+    whole.  Each rank attends its own (rows, heads) or (rows, queries):
+    the same sums as the whole, no collective inside."""
+    h, kvh = q.shape[2], k.shape[2]
+    m = shd.mesh_of(q).shape.get("model", 1)
+    ax = _attn_axis(h, q)
+    whole = not (ax == "heads" and kvh % m == 0)
+    q = hint(q, _DP, "model" if ax == "seq" else None,
+             "model" if ax == "heads" else None, None)
+    k = hint(k, _DP, None, None if whole else "model", None)
+    v = hint(v, _DP, None, None if whole else "model", None)
+    ql, kl, vl = _heads_local(q, k, v, whole)
+    out = _sdpa(ql, kl, vl, scale, causal=causal, chunk=chunk,
+                q0=shd.shard_offset(q, 1))
+    return _from_local_like(out, q)
+
+
 def _sdpa(q, k, v, scale: float, *, causal: bool = True,
-          chunk: int = ATTN_CHUNK) -> torch.Tensor:
-    """Causal attention.  q: (B, S, H, hd), k / v: (B, T, KV, hd) grouped.
-    Returns (B, S, H * hd)."""
+          chunk: int = ATTN_CHUNK, q0: int = 0) -> torch.Tensor:
+    """Causal attention.  q: (B, S, H, hd), k / v: (B, T, KV, hd) grouped;
+    q's rows are the queries at positions q0, q0 + 1, ...  Returns (B, S,
+    H * hd), a DTensor for DTensors (``_sdpa_sharded``)."""
+    if shd.is_dtensor(q):
+        return _sdpa_sharded(q, k, v, scale, causal, chunk)
     b, s, h, hd = q.shape
     groups = h // k.shape[2]
     k = _repeat_kv(k, groups)
@@ -75,7 +157,7 @@ def _sdpa(q, k, v, scale: float, *, causal: bool = True,
         return _softmax_pv(logits, v, "bhst,bthd->bshd")
 
     if s <= chunk:
-        out = attend(q, torch.arange(s, device=q.device))
+        out = attend(q, torch.arange(q0, q0 + s, device=q.device))
     else:
         if s % chunk:
             raise ValueError(f"seq {s} must be a multiple of {chunk}")
@@ -89,10 +171,45 @@ def _sdpa(q, k, v, scale: float, *, causal: bool = True,
                 return checkpoint(plain, qc, qpos, use_reentrant=False,
                                   preserve_rng_state=False)
         out = torch.cat([
-            attend(q[:, c:c + chunk], torch.arange(c, c + chunk,
+            attend(q[:, c:c + chunk], torch.arange(q0 + c, q0 + c + chunk,
                                                    device=q.device))
             for c in range(0, s, chunk)], dim=1)
     return out.reshape(b, s, h * v.shape[-1])
+
+
+def _banded(q, k, v, w: int) -> torch.Tensor:
+    """The banded form of sliding-window attention over q (B, S, H, hd),
+    k / v (B, S, KV, hd): (B, S, H * hd)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    nc = s // w
+
+    def chunk(t):  # (B, S, H, hd) -> (B, nc, w, H, hd)
+        return t.reshape(b, nc, w, t.shape[2], hd)
+
+    def prev(t):   # the previous chunk, zeros for the first (masked)
+        return torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
+
+    qc, kc, vc = chunk(q), chunk(k), chunk(v)
+    k2 = torch.cat([prev(kc), kc], dim=2)          # (B, nc, 2w, KV, hd)
+    v2 = torch.cat([prev(vc), vc], dim=2)
+    dev = q.device
+    qi = torch.arange(w, device=dev)[:, None]
+    kj = torch.arange(2 * w, device=dev)[None, :] - w
+    base = (kj <= qi) & (kj > qi - w)                  # (w, 2w)
+    first = base & (kj >= 0)                           # chunk 0: no prev
+    mask = torch.where(torch.arange(nc, device=dev)[:, None, None] == 0,
+                       first[None], base[None])        # (nc, w, 2w)
+    groups = h // kvh
+    k2 = _repeat_kv(k2.reshape(b * nc, 2 * w, kvh, hd), groups)
+    v2 = _repeat_kv(v2.reshape(b * nc, 2 * w, kvh, hd), groups)
+    k2 = k2.reshape(b, nc, 2 * w, h, hd)
+    v2 = v2.reshape(b, nc, 2 * w, h, hd)
+    logits = torch.einsum("bcshd,bcthd->bchst", qc, k2).float()
+    logits = logits * (1.0 / math.sqrt(hd))
+    logits = torch.where(mask[None, :, None], logits, NEG_INF)
+    out = _softmax_pv(logits, v2, "bchst,bcthd->bcshd")
+    return out.reshape(b, s, h * hd)
 
 
 class Attention(nn.Module):
@@ -130,12 +247,12 @@ class Attention(nn.Module):
         and the rotation of `rope` (a ``layers.rope_table``)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        q, k, v = x @ fsdp(self.wq), x @ fsdp(self.wk), x @ fsdp(self.wv)
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        q = split_heads(q, cfg.n_heads)
+        k = split_heads(k, cfg.n_kv_heads)
+        v = split_heads(v, cfg.n_kv_heads)
         if cfg.qk_norm:
             q = rms_norm(q, self.qnorm)
             k = rms_norm(k, self.knorm)
@@ -147,66 +264,91 @@ class Attention(nn.Module):
         if self.cfg.window is not None and x.shape[1] > self.cfg.window:
             return self._local(x, rope)
         q, k, v = self.qkv(x, rope)
-        return _sdpa(q, k, v, 1.0 / math.sqrt(self.cfg.head_dim)) @ self.wo
+        out = _sdpa(q, k, v, 1.0 / math.sqrt(self.cfg.head_dim))
+        return out @ fsdp(self.wo)
 
     def _local(self, x: torch.Tensor, rope) -> torch.Tensor:
         """Sliding-window attention in the chunked two-block banded form:
         each chunk of w queries attends to itself and the previous chunk
-        under the causal + window mask.  Exact for window <= w."""
-        cfg = self.cfg
-        w = cfg.window
-        b, s, _ = x.shape
-        if s % w:
-            raise ValueError(f"seq {s} must be a multiple of window {w}")
+        under the causal + window mask.  Exact for window <= w.  On
+        DTensors a shard-local body over (rows, heads): the heads over
+        "model" where both head counts divide it, else whole."""
+        w = self.cfg.window
+        if x.shape[1] % w:
+            raise ValueError(f"seq {x.shape[1]} must be a multiple of "
+                             f"window {w}")
         q, k, v = self.qkv(x, rope)
-        nc = s // w
-        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-        def chunk(t):  # (B, S, H, hd) -> (B, nc, w, H, hd)
-            return t.reshape(b, nc, w, t.shape[2], hd)
-
-        def prev(t):   # the previous chunk, zeros for the first (masked)
-            return torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
-
-        qc, kc, vc = chunk(q), chunk(k), chunk(v)
-        k2 = torch.cat([prev(kc), kc], dim=2)          # (B, nc, 2w, KV, hd)
-        v2 = torch.cat([prev(vc), vc], dim=2)
-        dev = x.device
-        qi = torch.arange(w, device=dev)[:, None]
-        kj = torch.arange(2 * w, device=dev)[None, :] - w
-        base = (kj <= qi) & (kj > qi - w)                  # (w, 2w)
-        first = base & (kj >= 0)                           # chunk 0: no prev
-        mask = torch.where(torch.arange(nc, device=dev)[:, None, None] == 0,
-                           first[None], base[None])        # (nc, w, 2w)
-        groups = h // kvh
-        k2 = _repeat_kv(k2.reshape(b * nc, 2 * w, kvh, hd), groups)
-        v2 = _repeat_kv(v2.reshape(b * nc, 2 * w, kvh, hd), groups)
-        k2 = k2.reshape(b, nc, 2 * w, h, hd)
-        v2 = v2.reshape(b, nc, 2 * w, h, hd)
-        logits = torch.einsum("bcshd,bcthd->bchst", qc, k2).float()
-        logits = logits * (1.0 / math.sqrt(hd))
-        logits = torch.where(mask[None, :, None], logits, NEG_INF)
-        out = _softmax_pv(logits, v2, "bchst,bcthd->bcshd")
-        return out.reshape(b, s, h * hd) @ self.wo
+        if not shd.is_dtensor(q):
+            return _banded(q, k, v, w) @ fsdp(self.wo)
+        m = shd.mesh_of(q).shape.get("model", 1)
+        ax = ("model" if self.cfg.n_heads % m == 0
+              and self.cfg.n_kv_heads % m == 0 else None)
+        q, k, v = (hint(t, _DP, None, ax, None) for t in (q, k, v))
+        ql, kl, vl = _heads_local(q, k, v, False)
+        return _from_local_like(_banded(ql, kl, vl, w), q) @ fsdp(self.wo)
 
     def decode(self, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                rope, where: "DecodeIndex") -> torch.Tensor:
         """One-token step.  x (B, 1, D); ck / cv (B, L, KV, hd), written in
-        place at ``where.slot``; returns (B, 1, D)."""
-        cfg = self.cfg
-        b = x.shape[0]
+        place at ``where.slot`` (DTensors under a mesh: by the rank that
+        holds the slot); returns (B, 1, D)."""
         q, k, v = self.qkv(x, rope)
-        rows = torch.arange(b, device=x.device)
-        ck[rows, where.slot] = k[:, 0]
-        cv[rows, where.slot] = v[:, 0]
-        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        qg = q.reshape(b, 1, kvh, h // kvh, hd)
-        logits = torch.einsum("bskgd,btkd->bkgst", qg, ck).float()
-        logits = logits * (1.0 / math.sqrt(hd))
-        logits = torch.where(where.valid[:, None, None, None, :], logits,
-                             NEG_INF)
+        shd.write_rows(ck, where.slot, k[:, 0])
+        shd.write_rows(cv, where.slot, v[:, 0])
+        if shd.is_dtensor(q):
+            return _decode_sharded(q, ck, cv, where.valid) @ fsdp(self.wo)
+        return _decode_local(q, ck, cv, where.valid) @ fsdp(self.wo)
+
+
+def _decode_local(q, ck, cv, valid, reduce=None) -> torch.Tensor:
+    """One query per row against a cache: q (B, 1, H, hd), ck / cv (B, L,
+    KV, hd), valid (B, L) -> (B, 1, H * hd).  `reduce(t, op)` combines
+    partial results across the shards of a sequence-split cache (the
+    online softmax: MAX of the maxima, SUMs of the sums and of the partial
+    values)."""
+    b, _, h, hd = q.shape
+    kvh = ck.shape[2]
+    qg = q.reshape(b, 1, kvh, h // kvh, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, ck).float()
+    logits = logits * (1.0 / math.sqrt(hd))
+    logits = torch.where(valid[:, None, None, None, :], logits, NEG_INF)
+    if reduce is None:
         out = _softmax_pv(logits, cv, "bkgst,btkd->bskgd")
-        return out.reshape(b, 1, h * hd) @ self.wo
+    else:
+        top = reduce(logits.amax(dim=-1, keepdim=True), "max")
+        unnorm = torch.exp(logits - top)
+        total = reduce(unnorm.sum(dim=-1, keepdim=True), "sum")
+        probs = (unnorm / torch.clamp(total, min=1e-30)).to(cv.dtype)
+        out = reduce(torch.einsum("bkgst,btkd->bskgd", probs, cv), "sum")
+    return out.reshape(b, 1, h * hd)
+
+
+def _decode_sharded(q, ck, cv, valid):
+    """``_decode_local`` on a DTensor cache, shard-local: q laid out as the
+    cache (its rows, and its heads where the cache's KV heads are split);
+    each rank attends over its (rows, heads, positions) and, where the
+    cache's positions are split, the online softmax combines the shards
+    on their groups."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dm = ck.device_mesh
+    cp = ck.placements
+    qpl = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(2)
+           else Replicate() for p in cp]
+    ql = q.redistribute(dm, qpl).to_local()
+    ckl, cvl = ck.to_local(), cv.to_local()
+    r0, s0 = shd.shard_offset(ck, 0), shd.shard_offset(ck, 1)
+    vl = shd.local(valid)[r0:r0 + ckl.shape[0], s0:s0 + ckl.shape[1]]
+    seq = [dm.get_group(m) for m, p in enumerate(cp) if p.is_shard(1)]
+
+    def reduce(t, op):
+        for g in seq:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+        return t
+    out = _decode_local(ql, ckl, cvl, vl, reduce if seq else None)
+    opl = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(2)
+           else Replicate() for p in cp]
+    return DTensor.from_local(out, dm, opl, run_check=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,12 +369,61 @@ class DecodeIndex:
         return cls(torch.clamp(pos, max=length - 1), idx <= pos[:, None])
 
 
+def decode_attention_seqsharded(attn: Attention, x: torch.Tensor,
+                                cache: dict, pos, *, axis: str = "data",
+                                mesh=None) -> tuple:
+    """Distributed flash decode: the KV cache sharded along SEQUENCE on
+    `axis` of `mesh` (default: the context mesh; none: one shard holds
+    the whole cache).
+
+    For long contexts, where a 0.5M-token cache cannot live on one card and
+    batch 1 leaves no batch axis to shard.  ``cache`` holds this rank's
+    slice {"k", "v"} (B, L / n, KV, hd) (``init_kv_cache(...,
+    seq_shards=n)``), x (B, 1, D) the token on every rank, pos a scalar.
+    Each rank attends over its slice with its own max and sum, then the
+    softmax is renormalised across the shards: an all-reduce MAX of the
+    maxima and SUMs of the sums and of the partial values on the axis's
+    group.  The new token is written only by the owning shard.  Returns
+    (out (B, 1, D), cache)."""
+    import torch.distributed._functional_collectives as funcol
+    mesh = shd.get_context_mesh() if mesh is None else mesh
+    group = mesh.group(axis) if mesh is not None else None
+
+    def reduce(t, op):
+        if group is None:
+            return t
+        return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+    cfg = attn.cfg
+    b = x.shape[0]
+    ck, cv = cache["k"], cache["v"]
+    pos = torch.as_tensor(pos, device=ck.device).reshape(())
+    positions = torch.full((b, 1), 0, dtype=torch.int64,
+                           device=ck.device) + pos
+    q, k, v = (shd.full(t) for t in attn.qkv(
+        x, rope_table(positions, cfg.head_dim, cfg.rope_theta)))
+    length = ck.shape[1]                       # local slice length
+    start = (mesh.coord(axis) if mesh is not None else 0) * length
+    slot = pos - start
+    owns = (slot >= 0) & (slot < length)
+    safe = torch.clamp(slot, 0, length - 1)
+    ck[:, safe] = torch.where(owns, k[:, 0], ck[:, safe])
+    cv[:, safe] = torch.where(owns, v[:, 0], cv[:, safe])
+    valid = (torch.arange(length, device=ck.device) + start <= pos).expand(
+        b, length)
+    # two-phase online softmax across shards
+    out = _decode_local(q, ck, cv, valid, reduce)
+    return shd.like(out, attn.wo) @ fsdp(attn.wo), cache
+
+
 def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,
-                  device, *, layers: int = 1) -> dict:
+                  device, *, layers: int = 1, seq_shards: int = 1) -> dict:
     """Zero k and v caches (layers, B, L, KV, hd), one per stacked layer: a
-    full cache (L = max_len) for global layers, a ring of the window for
-    local ones."""
-    length = min(max_len, cfg.window) if cfg.window else max_len
+    full cache (L = max_len, or this rank's max_len / `seq_shards` slice
+    for the sequence-sharded decode) for global layers, a ring of the
+    window for local ones."""
+    length = (min(max_len, cfg.window) if cfg.window
+              else max_len // seq_shards)
     shape = (layers, batch, length, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

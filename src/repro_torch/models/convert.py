@@ -21,6 +21,13 @@ and back; ``opt_state_to_reference`` / ``opt_state_from_reference`` carry
 the AdamW state (``{"step", "mu", "nu"}``, int8 moments as ``{"codes",
 "scale"}``), and ``train_state`` gives the ``{"params", "opt"}`` tree that
 the training loops of both packages checkpoint.
+
+On a mesh: ``from_reference(..., mesh=)`` lays the weights out by
+``models/sharding.py``'s rules and ``opt_state_from_reference`` the
+moments on their parameters' layouts; the other direction gathers every
+DTensor whole (``full_tensor()``), so the reference's tree and the
+checkpoints are the same with or without a mesh.
+``train_state_shardings`` gives the elastic restore its layouts.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from repro_torch.checkpoint.ckpt import LeafSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models import sharding as shd
 from repro_torch.models.model import DecoderLM
 
 _STACKED = ("prefix", "body")
@@ -81,6 +89,8 @@ def _stack(leaves: list):
         return {k: _stack([leaf[k] for leaf in leaves]) for k in first}
     if isinstance(first, LeafSpec):
         return LeafSpec((len(leaves), *first.shape), first.dtype)
+    if isinstance(first, shd.NamedSharding):
+        return shd.NamedSharding(first.mesh, shd.P(None, *first.spec))
     if isinstance(first, torch.Tensor):
         return torch.stack(leaves)
     return np.stack(leaves)
@@ -135,10 +145,12 @@ def unstack_tree(tree: dict, model: DecoderLM) -> dict:
 
 
 @torch.no_grad()
-def from_reference(tree: dict, cfg: ModelConfig, device=None) -> DecoderLM:
+def from_reference(tree: dict, cfg: ModelConfig, device=None,
+                   mesh=None) -> DecoderLM:
     """The port's model of `cfg` on `device` (None: the card) holding the
-    reference tree's weights, each cast to the dtype the port keeps it in.
-    Raises if a leaf is missing, foreign or of another shape."""
+    reference tree's weights, each cast to the dtype the port keeps it in,
+    laid out on `mesh` by the sharding rules when one is given.  Raises if
+    a leaf is missing, foreign or of another shape."""
     model = DecoderLM(cfg, device=resolve_device(device))
     params = dict(model.named_parameters())
     known = {".".join(map(str, _locate(n)[0])) for n in params}
@@ -155,15 +167,16 @@ def from_reference(tree: dict, cfg: ModelConfig, device=None) -> DecoderLM:
             raise ValueError(f"reference leaf for {name} {tuple(t.shape)} "
                              f"does not fit the port's {tuple(p.shape)}")
         p.copy_(t)
-    return model
+    return shd.shard_model(model, mesh)
 
 
 @torch.no_grad()
 def to_reference(model: DecoderLM) -> dict:
     """The inverse: the reference's tree of numpy arrays (bf16 as
-    float32), each prefix / body position's layers stacked."""
+    float32), each prefix / body position's layers stacked (a sharded
+    model's gathered whole)."""
     def leaf(p: torch.Tensor) -> np.ndarray:
-        p = p.detach().cpu()
+        p = shd.full(p.detach()).cpu()
         return (p.float() if p.dtype == torch.bfloat16 else p).numpy()
     return stack_tree({n: leaf(p) for n, p in model.named_parameters()},
                       model)
@@ -176,7 +189,7 @@ def _map(fn, value):
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().cpu()
+    return shd.full(t.detach()).cpu()
 
 
 def _spec(t: torch.Tensor) -> LeafSpec:
@@ -215,9 +228,12 @@ def opt_state_from_reference(tree: dict, model: DecoderLM) -> dict:
         return {n: _to(v, devices[n])
                 for n, v in unstack_tree(tree[key], model).items()}
     step = tree["step"]
-    return {"step": int(step.item() if isinstance(step, torch.Tensor)
-                        else np.asarray(step)),
-            "mu": moments("mu"), "nu": moments("nu")}
+    state = {"step": int(shd.full(step).item()
+                         if isinstance(step, torch.Tensor)
+                         else np.asarray(step)),
+             "mu": moments("mu"), "nu": moments("nu")}
+    mesh = shd.mesh_of(model.embed.table)
+    return state if mesh is None else shd.shard_opt_state(state, model, mesh)
 
 
 def train_state(model: DecoderLM, opt_state: dict, *, spec: bool = False):
@@ -231,11 +247,30 @@ def train_state(model: DecoderLM, opt_state: dict, *, spec: bool = False):
             "opt": _opt_tree(opt_state, model, leaf)}
 
 
+def train_state_shardings(model: DecoderLM, opt_state: dict) -> dict:
+    """The ``train_state`` tree's layouts on the mesh a sharded `model`
+    lives on (``NamedSharding`` leaves; None for the step): what
+    ``restore_checkpoint(..., shardings=)`` lays each leaf onto."""
+    mesh = shd.mesh_of(model.embed.table)
+    params = shd.model_shardings(model, mesh)
+    opt = shd.opt_state_shardings(opt_state, model, mesh)
+    return {"params": stack_tree(params, model),
+            "opt": {"step": None, "mu": stack_tree(opt["mu"], model),
+                    "nu": stack_tree(opt["nu"], model)}}
+
+
 @torch.no_grad()
 def load_train_state(tree: dict, model: DecoderLM) -> dict:
     """Copy a ``train_state`` tree's parameters into `model` and return its
-    AdamW state in the port's form."""
+    AdamW state in the port's form (on the model's mesh when the model is
+    sharded; the tree's leaves may be DTensors already, from an elastic
+    restore)."""
     values = unstack_tree(tree["params"], model)
     for name, p in model.named_parameters():
-        p.copy_(_to(values[name], p.device))
+        v = _to(values[name], p.device)
+        if shd.is_dtensor(p):
+            p.to_local().copy_(shd.like(v, p).redistribute(
+                p.device_mesh, p.placements).to_local())
+        else:
+            p.copy_(v)
     return opt_state_from_reference(tree["opt"], model)

@@ -16,6 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.sharding import (fsdp, is_dtensor, local_grads,
+                                         shard_offset)
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -85,7 +88,8 @@ class GatedMLP(nn.Module):
         normal_(self.wo, gen, 1.0 / math.sqrt(d_ff))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (F.silu(x @ self.wg) * (x @ self.wi)) @ self.wo
+        return ((F.silu(x @ fsdp(self.wg)) * (x @ fsdp(self.wi)))
+                @ fsdp(self.wo))
 
 
 # -------------------------------------------------------------- embedding ---
@@ -100,7 +104,31 @@ class Embed(nn.Module):
         normal_(self.table, gen, 0.02)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(tokens):
+            return _lookup_sharded(fsdp(self.table), tokens)
         return self.table[tokens]
+
+
+def _lookup_sharded(table, tokens):
+    """The vocab-parallel lookup as a shard-local body: each rank gathers
+    its rows of tokens from its vocab shard of the table (zeros where a
+    token lies in another shard) and the partial rows are summed over the
+    vocab shards, exactly (one nonzero term each)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    dm = table.device_mesh
+    rows = [p if p.is_shard(0) else Replicate() for p in tokens.placements]
+    tokens = tokens.redistribute(dm, rows)
+    split = [a.is_shard() or b.is_shard()
+             for a, b in zip(rows, table.placements)]
+    tab = local_grads(table, split)
+    idx = tokens.to_local() - shard_offset(table, 0)
+    inside = (idx >= 0) & (idx < tab.shape[0])
+    got = tab[torch.clamp(idx, 0, tab.shape[0] - 1)]
+    got = torch.where(inside[..., None], got, torch.zeros_like(got))
+    part = [Partial() if b.is_shard(0) else a
+            for a, b in zip(rows, table.placements)]
+    out = DTensor.from_local(got, dm, part, run_check=False)
+    return out.redistribute(dm, rows)
 
 
 class DenseHead(nn.Module):
@@ -115,7 +143,7 @@ class DenseHead(nn.Module):
         normal_(self.w, gen, 1.0 / math.sqrt(self.w.shape[0]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x @ self.w).float()
+        return (x @ fsdp(self.w)).float()
 
 
 @torch.no_grad()

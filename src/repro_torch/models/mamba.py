@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding as shd
+from repro_torch.models.sharding import fsdp
 from repro_torch.models.layers import normal_
 
 
@@ -105,21 +107,26 @@ class Mamba(nn.Module):
     def _ssm_inputs(self, xc: torch.Tensor):
         """dt (B, T, di), B and C (B, T, ds), float32 (``mamba.py:63-70``)."""
         r, ds = self.cfg.rank, self.cfg.d_state
-        dt_r, b, c = (xc @ self.x_proj).split([r, ds, ds], dim=-1)
-        dt = F.softplus((dt_r @ self.dt_proj).float() + self.dt_bias)
+        dt_r, b, c = (xc @ fsdp(self.x_proj)).split([r, ds, ds], dim=-1)
+        dt = F.softplus((dt_r @ fsdp(self.dt_proj)).float() + self.dt_bias)
         return dt, b.float(), c.float()
 
     def _scan(self, dt, xc, b_mat, c_mat, h):
         """The selective scan with its output projection fused
         (``mamba.py:73-128``): dt (B, T, di) float32, xc (B, T, di), B / C
         (B, T, ds) float32, h (B, di, ds) float32.  Returns (y (B, T, di)
-        float32, the last state)."""
+        float32, the last state).  On DTensors a shard-local body over the
+        batch rows (``sharding.rows_local``)."""
+        return shd.rows_local(self._scan_local, (dt, xc, b_mat, c_mat, h),
+                              (self.a_log,))
+
+    def _scan_local(self, dt, xc, b_mat, c_mat, h, a_log):
         t = dt.shape[1]
         q = min(self.cfg.chunk, t)
         if t % q:
             raise ValueError(f"seq {t} must be a multiple of the scan chunk "
                              f"{q}")
-        a = -torch.exp(self.a_log)                            # (di, ds)
+        a = -torch.exp(a_log)                                 # (di, ds)
         ys = []
         for c0 in range(0, t, q):
             dt_c, b_c, c_c = dt[:, c0:c0 + q], b_mat[:, c0:c0 + q], \
@@ -136,20 +143,20 @@ class Mamba(nn.Module):
         """Training / prefill, x (B, T, D) -> (B, T, D)
         (``mamba.py:144-157``)."""
         cfg = self.cfg
-        xi, z = (x @ self.in_proj).chunk(2, dim=-1)
+        xi, z = (x @ fsdp(self.in_proj)).chunk(2, dim=-1)
         xc, _ = self._conv(xi)
         dt, b_mat, c_mat = self._ssm_inputs(xc)
-        h0 = torch.zeros((x.shape[0], cfg.d_inner, cfg.d_state),
-                         dtype=torch.float32, device=x.device)
+        h0 = shd.like(torch.zeros((x.shape[0], cfg.d_inner, cfg.d_state),
+                                  dtype=torch.float32, device=x.device), x)
         y, _ = self._scan(dt, xc, b_mat, c_mat, h0)
         y = y + xc.float() * self.d_skip[:, 0]
-        return (y.to(x.dtype) * F.silu(z)) @ self.out_proj
+        return (y.to(x.dtype) * F.silu(z)) @ fsdp(self.out_proj)
 
     def decode(self, x: torch.Tensor, conv: torch.Tensor,
                ssm: torch.Tensor) -> torch.Tensor:
         """One-token step (``mamba.py:167-185``).  x (B, 1, D); conv
         (B, d_conv - 1, di) and ssm (B, di, ds) updated in place."""
-        xi, z = (x @ self.in_proj).chunk(2, dim=-1)
+        xi, z = (x @ fsdp(self.in_proj)).chunk(2, dim=-1)
         xc, conv_state = self._conv(xi, conv)
         dt, b_mat, c_mat = self._ssm_inputs(xc)
         a = -torch.exp(self.a_log)
@@ -159,9 +166,9 @@ class Mamba(nn.Module):
         y = torch.einsum("bds,bs->bd", h, c_mat[:, 0])
         y = y + xc[:, 0].float() * self.d_skip[:, 0]
         y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
-        conv.copy_(conv_state)
-        ssm.copy_(h)
-        return y @ self.out_proj
+        shd.assign(conv, conv_state)
+        shd.assign(ssm, h)
+        return y @ fsdp(self.out_proj)
 
 
 def init_mamba_state(cfg: MambaConfig, batch: int, dtype, device, *,

@@ -24,6 +24,8 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.models import sharding as shd
+from repro_torch.models.sharding import fsdp
 from repro_torch.models.attention import NEG_INF, DecodeIndex, _sdpa
 from repro_torch.models.layers import norm_scale, normal_, rms_norm, rotate
 
@@ -81,11 +83,11 @@ class MLA(nn.Module):
         (B, S, kv_lora), k_rope (B, S, rope) (``mla.py:63-77``)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        cq = rms_norm(x @ self.wq_a, self.q_a_norm)
-        q = (cq @ self.wq_b).reshape(b, s, cfg.n_heads,
+        cq = rms_norm(x @ fsdp(self.wq_a), self.q_a_norm)
+        q = (cq @ fsdp(self.wq_b)).reshape(b, s, cfg.n_heads,
                                      cfg.nope_dim + cfg.rope_dim)
         q_nope, q_rope = q.split([cfg.nope_dim, cfg.rope_dim], dim=-1)
-        kv = x @ self.wkv_a
+        kv = x @ fsdp(self.wkv_a)
         c_kv, k_rope = kv.split([cfg.kv_lora, cfg.rope_dim], dim=-1)
         c_kv = rms_norm(c_kv, self.kv_a_norm)
         k_rope = rotate(k_rope[:, :, None, :], rope)[:, :, 0, :]
@@ -95,7 +97,7 @@ class MLA(nn.Module):
         """wkv_b per head: its key half (kv_lora, H, nope) and value half
         (kv_lora, H, v)."""
         cfg = self.cfg
-        kvb = self.wkv_b.reshape(cfg.kv_lora, cfg.n_heads,
+        kvb = fsdp(self.wkv_b).reshape(cfg.kv_lora, cfg.n_heads,
                                  cfg.nope_dim + cfg.v_dim)
         return kvb[..., :cfg.nope_dim], kvb[..., cfg.nope_dim:]
 
@@ -113,7 +115,7 @@ class MLA(nn.Module):
         q_cat = torch.cat([q_nope, q_rope], dim=-1)
         k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             b, s, cfg.n_heads, cfg.rope_dim)], dim=-1)
-        return _sdpa(q_cat, k_cat, v, self._scale()) @ self.wo
+        return _sdpa(q_cat, k_cat, v, self._scale()) @ fsdp(self.wo)
 
     def decode(self, x: torch.Tensor, c_kv: torch.Tensor,
                k_rope: torch.Tensor, rope,
@@ -124,19 +126,19 @@ class MLA(nn.Module):
         cfg = self.cfg
         b = x.shape[0]
         q_nope, q_rope, c_new, k_new = self._project(x, rope)
-        rows = torch.arange(b, device=x.device)
-        c_kv[rows, where.slot] = c_new[:, 0]
-        k_rope[rows, where.slot] = k_new[:, 0]
+        shd.write_rows(c_kv, where.slot, c_new[:, 0])
+        shd.write_rows(k_rope, where.slot, k_new[:, 0])
         wk, wv = self._wkv_b()
         q_c = torch.einsum("bshd,chd->bshc", q_nope, wk)
         logits = (torch.einsum("bshc,btc->bhst", q_c, c_kv)
                   + torch.einsum("bshd,btd->bhst", q_rope, k_rope)
                   ).float() * self._scale()
-        logits = torch.where(where.valid[:, None, None, :], logits, NEG_INF)
+        logits = torch.where(shd.like(where.valid[:, None, None, :], logits),
+                             logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1)
         ctx = torch.einsum("bhst,btc->bshc", probs.to(c_kv.dtype), c_kv)
         out = torch.einsum("bshc,chd->bshd", ctx, wv)
-        return out.reshape(b, 1, cfg.n_heads * cfg.v_dim) @ self.wo
+        return out.reshape(b, 1, cfg.n_heads * cfg.v_dim) @ fsdp(self.wo)
 
 
 def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int, dtype, device,

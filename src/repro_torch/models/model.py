@@ -35,6 +35,18 @@ reference's ``jax.checkpoint`` policies do.
 ``decode_step`` updates the decode state in place, KV caches and
 recurrent states alike, and returns it (the reference returns a new
 state).
+
+A mesh (``launch/mesh.py``; ``forward``, ``loss_fn``, ``prefill`` and
+``decode_step`` take one, as ``Model(cfg, mesh)`` does) runs the passes on
+a model laid out by ``models/sharding.py`` (``shard_model``): the
+parameters are DTensors, the tokens enter split over the dp axes, and the
+activations are DTensors that the reference's hints pin
+(``activation_sharding`` after each block, ``model.py:175-178``).  The
+LogHD head keeps its kernel there: each rank scores its rows against its
+vocab shard (the reference turns its Pallas kernel off under a mesh and
+computes the same scores in jnp); the cross entropy over the vocab shards
+takes a MAX and two SUMs on the "model" group.  The loss comes back a
+plain scalar, the same on every rank; logits as DTensors.
 """
 
 from __future__ import annotations
@@ -51,13 +63,15 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.api.dispatch import loghd_head_scores
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models import sharding as shd
 from repro_torch.models.attention import (Attention, AttnConfig, DecodeIndex,
+                                          decode_attention_seqsharded,
                                           init_kv_cache)
 from repro_torch.models.layers import (DenseHead, Embed, GatedMLP, norm_scale,
                                        normal_, rms_norm, rope_table)
 from repro_torch.models.mamba import Mamba, MambaConfig, init_mamba_state
 from repro_torch.models.mla import MLA, MLAConfig, init_mla_cache
-from repro_torch.models.moe import MoE, MoEConfig
+from repro_torch.models.moe import MoE, MoEConfig, moe_block
 from repro_torch.models.xlstm import (MLSTM, SLSTM, XLSTMConfig,
                                       init_mlstm_state, init_slstm_state)
 
@@ -137,6 +151,14 @@ def _remat(policy: str):
     return run
 
 
+def _gathered(h):
+    """A block's input laid out with the batch over the dp axes and the
+    rest whole: a DTensor carry stored sequence- or d-sharded is gathered
+    here, as sequence parallelism does before its matmuls, and the
+    residual sums run in this layout."""
+    return shd.hint(h, ("pod", "data"), *((None,) * (h.ndim - 1)))
+
+
 class Block(nn.Module):
     """Residual block: x + mixer(ln1(x)), then x + ffn(ln2(x)).  The mixer
     is the attribute named by ``key`` (the reference's parameter key:
@@ -151,6 +173,7 @@ class Block(nn.Module):
         self.key = _mixer_key(blk)
         setattr(self, self.key, _MIXERS[self.key](mc, **kw))
         self.mlp = self.moe = None
+        self.act_sharding = cfg.activation_sharding
         if blk.ffn != "none":
             self.ln2 = norm_scale(cfg.d_model, device)
         if blk.ffn == "dense":
@@ -179,26 +202,42 @@ class Block(nn.Module):
         if self.mlp is not None:
             return x + self.mlp(rms_norm(x, self.ln2)), None
         if self.moe is not None:
-            y, aux = self.moe(rms_norm(x, self.ln2))
+            y, aux = moe_block(self.moe, rms_norm(x, self.ln2),
+                               shd.mesh_of(x))
             return x + y, aux
         return x, None
 
     def forward(self, x: torch.Tensor, ropes: dict):
         """x (B, S, D) -> (x, the MoE aux loss or None); `ropes` maps a
         rotary width to its ``rope_table``."""
+        x = _gathered(x)
         # the mixer's output is cast to x's dtype (model.py:168)
         mixed = self.mixer(rms_norm(x, self.ln1), ropes.get(self.rope_dim))
-        return self._ffn(x + mixed.to(x.dtype))
+        x, aux = self._ffn(x + mixed.to(x.dtype))
+        # the carry stored model-sharded under a mesh (model.py:175-178)
+        if self.act_sharding == "seq":
+            x = shd.hint(x, ("pod", "data"), "model", None)
+        elif self.act_sharding == "d":
+            x = shd.hint(x, ("pod", "data"), None, "model")
+        return x, aux
 
     def decode(self, x: torch.Tensor, st: dict, layer: int, ropes: dict,
-               index) -> torch.Tensor:
+               index, seq_pos=None) -> torch.Tensor:
         """One token through layer `layer` of this position's stacked
         state `st` (updated in place), as ``model.py:332-358``: the MoE aux
         loss is dropped.  ``index(length, local)`` gives the
-        ``DecodeIndex`` of a cache of that length."""
+        ``DecodeIndex`` of a cache of that length; `seq_pos` (the step's
+        scalar position) sends a global attention layer through the
+        sequence-sharded flash decode."""
+        x = _gathered(x)
         h = rms_norm(x, self.ln1)
         rope = ropes.get(self.rope_dim)
-        if self.key == "attn":
+        if (self.key == "attn" and seq_pos is not None
+                and self.attn.cfg.window is None):
+            mixed, _ = decode_attention_seqsharded(
+                self.attn, h, {"k": st["k"][layer], "v": st["v"][layer]},
+                seq_pos)
+        elif self.key == "attn":
             ck = st["k"]
             mixed = self.attn.decode(
                 h, ck[layer], st["v"][layer], rope,
@@ -233,7 +272,40 @@ class LogHDHead(nn.Module):
         normal_(self.profiles, gen, 0.05)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return loghd_head_scores(x, self.bundles, self.profiles)
+        mesh = shd.mesh_of(x)
+        if mesh is None:
+            return loghd_head_scores(x, self.bundles, self.profiles)
+        return _loghd_head_sharded(x, self.bundles, self.profiles, mesh)
+
+
+def _loghd_head_sharded(x, bundles, profiles, mesh):
+    """The LogHD head on a mesh: each rank runs ``loghd_head_scores`` (one
+    kernel launch on the card) on its rows of x (split over the dp axes
+    that divide B), the bundles gathered whole and its vocab shard of the
+    profiles; a vocab row's score depends on that row alone, so the local
+    logits are the full result's columns.  Backward: the profiles'
+    gradient stays local (summed over the row shards), the bundles' and
+    x's are partial sums over the vocab shards."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dm = mesh.device_mesh
+    xs = shd.hint(x, shd.dp_for_batch(mesh, x.shape[0]),
+                  *((None,) * (x.ndim - 1)))
+    if not shd.is_dtensor(profiles):
+        profiles = DTensor.from_local(profiles, dm, [Replicate()] * dm.ndim,
+                                      run_check=False)
+        bundles = DTensor.from_local(bundles, dm, [Replicate()] * dm.ndim,
+                                     run_check=False)
+    split = [a.is_shard() or b.is_shard()
+             for a, b in zip(xs.placements, profiles.placements)]
+    h = shd.local_grads(xs, split)
+    m = shd.local_grads(bundles.redistribute(dm, [Replicate()] * dm.ndim),
+                        split)
+    p = shd.local_grads(profiles, split)
+    out = loghd_head_scores(h, m, p)
+    vocab = out.ndim - 1
+    pl = [Shard(vocab) if b.is_shard() else a
+          for a, b in zip(xs.placements, profiles.placements)]
+    return DTensor.from_local(out, dm, pl, run_check=False)
 
 
 class DecoderLM(nn.Module):
@@ -283,19 +355,26 @@ class DecoderLM(nn.Module):
         self.head.init_weights(gen)
 
     def _embed(self, tokens, embeddings) -> torch.Tensor:
+        mesh = shd.get_context_mesh()
         if embeddings is None:
-            x = self.embed(torch.as_tensor(tokens, device=self.device).long())
+            tokens = torch.as_tensor(tokens, device=self.device).long()
+            if mesh is not None:
+                tokens = shd.place_batch(tokens, mesh)
+            x = self.embed(tokens)
         else:
-            x = embeddings
+            x = (embeddings if mesh is None
+                 else shd.place_batch(embeddings, mesh))
         if self.cfg.scale_embed:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
                                  device=x.device)
         return x
 
-    def _ropes(self, positions: torch.Tensor) -> dict:
+    def _ropes(self, positions: torch.Tensor, x) -> dict:
         """Each rotary width's table at `positions`, computed once a pass
-        and shared by the layers (the reference recomputes it in each)."""
-        return {dim: rope_table(positions, dim, self.cfg.rope_theta)
+        and shared by the layers (the reference recomputes it in each);
+        replicated DTensors when x is a DTensor."""
+        return {dim: tuple(shd.like(t, x) for t in rope_table(
+                    positions, dim, self.cfg.rope_theta))
                 for dim in self.rope_dims}
 
     def backbone(self, tokens=None, embeddings=None):
@@ -307,7 +386,7 @@ class DecoderLM(nn.Module):
         x = self._embed(tokens, embeddings)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
-        ropes = self._ropes(positions)
+        ropes = self._ropes(positions, x)
         run = _remat(self.cfg.remat_policy)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         # prefix: position-major, all repetitions of a position in turn
@@ -341,16 +420,26 @@ class DecoderLM(nn.Module):
         return self.head(x), aux
 
     @torch.no_grad()
-    def decode_step(self, state: dict, tokens, pos, *, embeddings=None):
+    def decode_step(self, state: dict, tokens, pos, *, embeddings=None,
+                    seq_sharded: bool = False):
         """One decode step.  tokens (B, 1) int; pos a scalar or (B,) int
-        per-slot positions.  Writes each layer's cache entries and
-        recurrent states into `state` in place; returns (logits (B, 1, V)
-        float32, state)."""
+        per-slot positions (a scalar when `seq_sharded`: the global
+        attention layers' caches then hold this rank's sequence slice, see
+        ``decode_attention_seqsharded``).  Writes each layer's cache
+        entries and recurrent states into `state` in place; returns
+        (logits (B, 1, V) float32, state)."""
         x = self._embed(tokens, embeddings)
         b = x.shape[0]
+        seq_pos = None
+        if seq_sharded:
+            seq_pos = torch.as_tensor(pos, dtype=torch.int64,
+                                      device=x.device)
+            if seq_pos.ndim:
+                raise ValueError("the sequence-sharded decode takes one "
+                                 "scalar position for every slot")
         pos = torch.broadcast_to(
             torch.as_tensor(pos, dtype=torch.int64, device=x.device), (b,))
-        ropes = self._ropes(pos[:, None])
+        ropes = self._ropes(pos[:, None], x)
         where: dict = {}
 
         def index(length: int, local: bool) -> DecodeIndex:
@@ -358,12 +447,17 @@ class DecoderLM(nn.Module):
                 where[length, local] = DecodeIndex.of(pos, length, local)
             return where[length, local]
 
+        # a state of plain tensors on a mesh: each rank holds it whole,
+        # replicated DTensors over the same storage
+        view = state if not shd.is_dtensor(x) or seq_sharded else {
+            name: [{k: shd.like(t, x) for k, t in st.items()} for st in sts]
+            for name, sts in state.items()}
         # both stacks position-major: every layer of pattern position 0,
         # then of position 1, ... (model.py:376-387 and :389-396)
         for name, stacks in (("prefix", self.prefix), ("body", self.body)):
-            for stack, st in zip(stacks, state.get(name, ())):
+            for stack, st in zip(stacks, view.get(name, ())):
                 for layer, blk in enumerate(stack):
-                    x = blk.decode(x, st, layer, ropes, index)
+                    x = blk.decode(x, st, layer, ropes, index, seq_pos)
         x = rms_norm(x, self.final_norm)
         return self.head(x), state
 
@@ -386,10 +480,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> DecoderLM:
     ``mamba.py:44-60``, ``xlstm.py:47-59`` and ``:195-206``,
     ``moe.py:45-59``, ``layers.py:54-83``, ``model.py:124-133``), and its
     constants (norms and biases zero, Mamba's A and dt bias, skip weights
-    one).  The draws differ from jax's for the same seed."""
+    one).  The draws differ from jax's for the same seed.  On the meta
+    device nothing is drawn: the model's shapes and dtypes alone (the dry
+    run builds deepseek-v3's 671 B parameters so)."""
     dev = resolve_device(device)
     model = DecoderLM(cfg, device=dev)
-    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    if dev.type != "meta":
+        model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     return model
 
 
@@ -399,16 +496,30 @@ def head_logits(params: DecoderLM, cfg: ModelConfig,
     return _check_cfg(params, cfg).head(x)
 
 
-def forward(params: DecoderLM, cfg: ModelConfig, tokens=None, *,
+def _on_mesh(params: DecoderLM, mesh):
+    """`params` checked to be laid out on `mesh` (``shard_model``) when
+    the mesh has a DeviceMesh; the mesh installed for the pass."""
+    if mesh is not None and mesh.device_mesh is not None and not (
+            shd.is_dtensor(params.embed.table)
+            and params.embed.table.device_mesh == mesh.device_mesh):
+        raise ValueError("the model is not laid out on this mesh: call "
+                         "models.sharding.shard_model(model, mesh) first")
+    return shd.use_mesh(mesh)
+
+
+def forward(params: DecoderLM, cfg: ModelConfig, tokens=None, mesh=None, *,
             embeddings: Optional[torch.Tensor] = None):
-    """tokens (B, S) -> (logits (B, S, V) float32, aux loss)."""
-    return _check_cfg(params, cfg)(tokens, embeddings=embeddings)
+    """tokens (B, S) -> (logits (B, S, V) float32, aux loss); on `mesh`
+    the logits are a DTensor."""
+    model = _check_cfg(params, cfg)
+    with _on_mesh(model, mesh):
+        return model(tokens, embeddings=embeddings)
 
 
-def prefill(params: DecoderLM, cfg: ModelConfig, tokens=None,
+def prefill(params: DecoderLM, cfg: ModelConfig, tokens=None, mesh=None,
             embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The forward pass's last-position logits (B, 1, V)."""
-    logits, _ = forward(params, cfg, tokens, embeddings=embeddings)
+    logits, _ = forward(params, cfg, tokens, mesh, embeddings=embeddings)
     return logits[:, -1:]
 
 
@@ -416,13 +527,59 @@ def _xent_from_logits(logits: torch.Tensor,
                       targets: torch.Tensor) -> torch.Tensor:
     """Summed token NLL of float32 logits (..., V): logsumexp minus the
     target's logit (the reference's one-hot einsum picks the same value
-    exactly: every other term is a zero)."""
+    exactly: every other term is a zero).  DTensor logits take the
+    vocab-sharded form."""
+    mesh = shd.mesh_of(logits)
+    if mesh is not None:
+        return _xent_sharded(logits, targets, mesh)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets[..., None])[..., 0]
     return (lse - tgt).sum()
 
 
-def loss_fn(params: DecoderLM, cfg: ModelConfig, tokens, targets, *,
+def _xent_sharded(logits, targets: torch.Tensor, mesh) -> torch.Tensor:
+    """The summed NLL of DTensor logits (B, ..., V), laid out with the
+    rows over the dp axes that divide B and the vocab over "model": each
+    rank takes its shard's max, all-reduced (MAX) over the vocab shards,
+    its sum of exp(l - max) and its pick of the target logit (zero where
+    the target lies in another shard), both summed over the vocab shards
+    (the reference's one-hot einsum partitions the same way), then the
+    rows' NLL summed over the row shards.  A plain scalar, the same on
+    every rank, differentiable in the logits."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dm = mesh.device_mesh
+    vdim = logits.ndim - 1
+    lg = shd.hint(logits, shd.dp_for_batch(mesh, logits.shape[0]),
+                  *((None,) * (vdim - 1)), "model")
+    pl = lg.placements
+    l = lg.to_local()
+    t = shd.place_batch(targets, mesh).to_local()
+    v_loc = l.shape[-1]
+    v0 = shd.shard_offset(lg, vdim)
+    mx = l.detach().amax(dim=-1)
+    for m, p in enumerate(pl):
+        if p.is_shard(vdim):
+            mx = funcol.wait_tensor(funcol.all_reduce(
+                mx, "max", dm.get_group(m)))
+    se = torch.exp(l - mx[..., None]).sum(dim=-1)
+    idx = t - v0
+    inside = (idx >= 0) & (idx < v_loc)
+    picked = l.gather(-1, torch.clamp(idx, 0, v_loc - 1)[..., None])[..., 0]
+    tgt = torch.where(inside, picked, 0)
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in pl]
+    part = [Partial() if p.is_shard(vdim) else r for p, r in zip(pl, rows)]
+
+    def vocab_sum(v):
+        return DTensor.from_local(v, dm, part, run_check=False).redistribute(
+            dm, rows).to_local()
+    nll = (mx + torch.log(vocab_sum(se)) - vocab_sum(tgt)).sum()
+    total = [Partial() if p.is_shard(0) else Replicate() for p in pl]
+    return DTensor.from_local(nll, dm, total, run_check=False).full_tensor()
+
+
+def loss_fn(params: DecoderLM, cfg: ModelConfig, tokens, targets,
+            mesh=None, *,
             embeddings: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token NLL over (B, S) plus the MoE auxiliary loss: a float32
     scalar that autograd differentiates in every parameter.  `tokens` and
@@ -434,9 +591,19 @@ def loss_fn(params: DecoderLM, cfg: ModelConfig, tokens, targets, *,
     checkpoint, as the reference's ``jax.checkpoint``-ed scan does
     (``model.py:263-284``): the (B, chunk, V) logits are made again in the
     backward instead of kept, so the LogHD head launches twice a chunk (a
-    forward and a recomputation)."""
+    forward and a recomputation).
+
+    On `mesh` the model must be laid out on it (``shard_model``); tokens
+    and targets are the global batch (or DTensors), and the loss is a
+    plain scalar, the same on every rank."""
     model = _check_cfg(params, cfg)
+    with _on_mesh(model, mesh):
+        return _loss(model, cfg, tokens, targets, embeddings)
+
+
+def _loss(model: DecoderLM, cfg: ModelConfig, tokens, targets, embeddings):
     x, aux = model.backbone(tokens, embeddings)
+    x = shd.hint(x, ("pod", "data"), None, None)
     targets = torch.as_tensor(targets, device=x.device).long()
     b, s, _ = x.shape
     chunk = cfg.loss_chunk
@@ -458,13 +625,15 @@ def loss_fn(params: DecoderLM, cfg: ModelConfig, tokens, targets, *,
 
 
 def _init_block_state(cfg: ModelConfig, blk: BlockSpec, batch: int,
-                      max_len: int, dtype, device, layers: int) -> dict:
+                      max_len: int, dtype, device, layers: int,
+                      seq_shards: int = 1) -> dict:
     """One pattern position's zero state, stacked over its `layers`
     (``model.py:291-305``)."""
     mc = _mixer_cfg(cfg, blk)
     key = _mixer_key(blk)
     if key == "attn":
-        return init_kv_cache(mc, batch, max_len, dtype, device, layers=layers)
+        return init_kv_cache(mc, batch, max_len, dtype, device, layers=layers,
+                             seq_shards=seq_shards)
     if key == "mla":
         return init_mla_cache(mc, batch, max_len, dtype, device,
                               layers=layers)
@@ -476,19 +645,21 @@ def _init_block_state(cfg: ModelConfig, blk: BlockSpec, batch: int,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device=None) -> dict:
+                      seq_shards: int = 1, device=None) -> dict:
     """Zero decode states in the reference's layout: ``{"prefix": [...],
     "body": [...]}`` with one entry per pattern position, stacked over its
     layers: ``{"k", "v"}`` (layers, B, L, KV, hd) for attention,
     ``{"c_kv", "k_rope"}`` for MLA, ``{"conv", "ssm"}`` for Mamba, ``{"c",
     "n", "m"}`` for mLSTM and ``{"c", "n", "m", "h"}`` for sLSTM, caches in
-    the config's dtype ("prefix" only when the config has one)."""
+    the config's dtype ("prefix" only when the config has one).
+    `seq_shards`: the global attention caches hold max_len / seq_shards
+    positions, a rank's slice for the sequence-sharded decode."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
 
     def caches(pattern, layers):
         return [_init_block_state(cfg, blk, batch, max_len, dtype, dev,
-                                  layers) for blk in pattern]
+                                  layers, seq_shards) for blk in pattern]
 
     state = {}
     if cfg.prefix_pattern:
@@ -499,27 +670,44 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step(params: DecoderLM, cfg: ModelConfig, state: dict, tokens,
-                pos, *, embeddings: Optional[torch.Tensor] = None):
+                pos, mesh=None, *, seq_sharded: bool = False,
+                embeddings: Optional[torch.Tensor] = None):
     """One decode step: (logits (B, 1, V) float32, state updated in place).
     The MoE capacity counts the step's B tokens, so a step may drop other
-    tokens than ``forward`` over the sequence does (``moe.py:97``)."""
-    return _check_cfg(params, cfg).decode_step(state, tokens, pos,
-                                               embeddings=embeddings)
+    tokens than ``forward`` over the sequence does (``moe.py:97``).  On
+    `mesh` the state's tensors may be DTensors (``launch/specs.py`` lays
+    them out) and the logits come back a DTensor; `seq_sharded` takes the
+    sequence-sharded flash decode over "data" for the global attention
+    layers, whose caches then hold this rank's slice
+    (``init_decode_state(..., seq_shards=)``)."""
+    model = _check_cfg(params, cfg)
+    with _on_mesh(model, mesh):
+        return model.decode_step(state, tokens, pos, embeddings=embeddings,
+                                 seq_sharded=seq_sharded)
 
 
 class Model:
-    """Thin OO facade, as the reference's: ``init`` draws the weights,
-    ``loss`` is ``loss_fn`` (differentiable), ``forward`` the logits."""
+    """Thin OO facade, as the reference's: ``init`` draws the weights (laid
+    out on the mesh when there is one), ``loss`` is ``loss_fn``
+    (differentiable), ``forward`` the logits."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, mesh=None, *, device=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
 
     def init(self, seed: int = 0) -> DecoderLM:
-        return init_params(self.cfg, seed, self.device)
+        return shd.shard_model(init_params(self.cfg, seed, self.device),
+                               self.mesh)
 
     def loss(self, params: DecoderLM, tokens, targets) -> torch.Tensor:
-        return loss_fn(params, self.cfg, tokens, targets)
+        return loss_fn(params, self.cfg, tokens, targets, self.mesh)
 
     def forward(self, params: DecoderLM, tokens):
-        return forward(params, self.cfg, tokens)
+        return forward(params, self.cfg, tokens, self.mesh)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Parameter name -> P (``models/sharding.py``'s rules), from the
+    model of `cfg` built on the meta device (no weight is drawn)."""
+    return shd.model_specs(DecoderLM(cfg, device=torch.device("meta")))

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts ffn (port of ``repro.models.moe``'s single-device
-path, ``_local_moe`` without its collectives).
+"""Mixture-of-Experts ffn with expert parallelism (port of
+``repro.models.moe``).
 
 Used by deepseek-v3 (256 routed experts and one shared, top-8),
 granite-moe (32 experts, top-8) and jamba (16 experts, top-2).
@@ -19,22 +19,32 @@ token's k outputs are gathered back and summed with their gates.
 The capacity counts every token of the call, so a decode step (T = B)
 and a forward (T = B * S) can drop different tokens, in the reference
 too; with ``capacity_factor = E / top_k`` nothing is dropped.
+
+Expert parallelism (``moe_block(moe, x, mesh)``, ``moe.py:147-215``): the
+experts are split over the mesh's "model" axis, E / M a rank, and each
+rank's expert matrices are gathered over "data" (the FSDP axis) before
+its body runs.  The tokens enter split over the dp axes that divide B and,
+where S divides, over "model"; each rank routes its local tokens (the
+capacity counts them, so a sharded call can drop other tokens than an
+unsharded one, in both packages), sends each expert's buffer to its owner
+with one shape-preserving ``all_to_all`` on the "model" group, runs its
+experts over the (E / M, M * cap, D) buffers it received, and sends the
+outputs back with a second one.  The Switch loss is each rank's own,
+averaged over the mesh.  The shared expert runs outside the body on
+DTensors, as the reference computes it outside its ``shard_map``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import normal_
-
-_NO_MESH = ("a mesh: the LM sharding rules (models/sharding.py) are not "
-            "ported yet (ROADMAP queue 1, item 5)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,11 +121,13 @@ class MoE(nn.Module):
             normal_(self.shared_wo, gen,
                     1.0 / math.sqrt(self.cfg.shared_expert_ff))
 
-    def route(self, x: torch.Tensor) -> Routing:
-        """Routing of x (T, D) (``moe.py:83-103``)."""
+    def route(self, x: torch.Tensor, router=None) -> Routing:
+        """Routing of x (T, D) (``moe.py:83-103``), by `router` (default
+        the module's)."""
         cfg = self.cfg
         t, e = x.shape[0], cfg.n_experts
-        logits = (x @ self.router.to(x.dtype)).float()
+        router = self.router if router is None else router
+        logits = (x @ router.to(x.dtype)).float()
         probs = torch.softmax(logits, dim=-1)
         gates, experts = top_k(probs, cfg.top_k)
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -130,17 +142,25 @@ class MoE(nn.Module):
         return Routing(experts, gates, torch.where(keep, slot, cap - 1),
                        keep, cap, aux)
 
-    def experts_ffn(self, buf: torch.Tensor) -> torch.Tensor:
-        """Every expert's SwiGLU over its (cap, D) buffer: (E, cap, D)."""
-        g = F.silu(torch.bmm(buf, self.wg))
-        return torch.bmm(g * torch.bmm(buf, self.wi), self.wo)
+    def experts_ffn(self, buf: torch.Tensor, wi=None, wg=None,
+                    wo=None) -> torch.Tensor:
+        """Every expert's SwiGLU over its (cap, D) buffer: (E, cap, D), by
+        the given expert matrices (default the module's)."""
+        wi = self.wi if wi is None else wi
+        wg = self.wg if wg is None else wg
+        wo = self.wo if wo is None else wo
+        g = F.silu(torch.bmm(buf, wg))
+        return torch.bmm(g * torch.bmm(buf, wi), wo)
 
-    def forward(self, x: torch.Tensor):
-        """x (B, S, D) -> (y (B, S, D), aux loss () float32)."""
+    def routed(self, xt: torch.Tensor, router=None, experts=None,
+               exchange=None):
+        """The routed experts over local tokens xt (T, D): (y (T, D), aux).
+        `experts` (wi, wg, wo) are the experts this rank runs and
+        `exchange(buf, back)` moves the (E, cap, D) buffers to their
+        owners and back (None: every expert here, no exchange)."""
         cfg = self.cfg
-        b, s, d = x.shape
-        xt = x.reshape(-1, d)
-        r = self.route(xt)
+        d = xt.shape[1]
+        r = self.route(xt, router)
         flat = r.experts.reshape(-1)
         keep = r.keep[:, None]
         x_rep = torch.repeat_interleave(xt, cfg.top_k, dim=0)  # (T*K, D)
@@ -148,19 +168,104 @@ class MoE(nn.Module):
         # reference's scatter-add, a plain copy for every kept token
         buf = xt.new_zeros((cfg.n_experts, r.cap, d)).index_put(
             (flat, r.slots), torch.where(keep, x_rep, 0), accumulate=True)
-        out = self.experts_ffn(buf)
+        if exchange is not None:
+            buf = exchange(buf, back=False)
+        out = self.experts_ffn(buf, *(experts or ()))
+        if exchange is not None:
+            out = exchange(out, back=True)
         y_tok = torch.where(keep, out[flat, r.slots], 0)
         y = (y_tok.reshape(-1, cfg.top_k, d)
              * r.gates[..., None].to(y_tok.dtype)).sum(1)
-        if cfg.shared_expert_ff:
-            sg = F.silu(xt @ self.shared_wg)
-            y = y + (sg * (xt @ self.shared_wi)) @ self.shared_wo
-        return y.reshape(b, s, d), r.aux
+        return y, r.aux
+
+    def shared(self, x):
+        """The shared expert's SwiGLU (x may be a DTensor)."""
+        sg = F.silu(x @ shd.fsdp(self.shared_wg))
+        return ((sg * (x @ shd.fsdp(self.shared_wi)))
+                @ shd.fsdp(self.shared_wo))
+
+    def forward(self, x: torch.Tensor):
+        """x (B, S, D) -> (y (B, S, D), aux loss () float32)."""
+        b, s, d = x.shape
+        xt = x.reshape(-1, d)
+        y, aux = self.routed(xt)
+        if self.cfg.shared_expert_ff:
+            y = y + self.shared(xt)
+        return y.reshape(b, s, d), aux
 
 
-def moe_block(moe: MoE, x: torch.Tensor, mesh: Optional[object] = None):
-    """The reference's ``moe_block`` entry: ``moe(x)`` on one device; a
-    mesh (expert parallelism) raises until the LM sharding is ported."""
-    if mesh is not None:
-        raise NotImplementedError(f"moe_block with {_NO_MESH}")
-    return moe(x)
+def moe_block(moe: MoE, x: torch.Tensor, mesh=None):
+    """The reference's ``moe_block``: ``moe(x)`` without a mesh (or on a
+    mesh of one rank without a process group, or without a "model"
+    axis); with one, expert parallelism over "model" (see the module
+    docstring).  x (B, S, D) is a DTensor or the global tensor on every
+    rank; y comes back a DTensor on x's layout, aux a float32 scalar, the
+    same on every rank."""
+    if (mesh is None or mesh.device_mesh is None
+            or "model" not in mesh.axis_names):
+        return moe(x)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    import torch.distributed._functional_collectives as funcol
+    cfg = moe.cfg
+    dm = mesh.device_mesh
+    nd = len(mesh.axis_names)
+    n_ep = mesh.shape["model"]
+    if cfg.n_experts % n_ep:
+        raise ValueError(f"{cfg.n_experts} experts do not split over a "
+                         f"model axis of {n_ep}")
+    e_loc = cfg.n_experts // n_ep
+    rep = [Replicate()] * nd
+
+    def dt(t):
+        return t if shd.is_dtensor(t) else DTensor.from_local(
+            t, dm, rep, run_check=False)
+
+    xd = dt(x)
+    b, s, d = xd.shape
+    # tokens over the dp axes that divide B and, where S divides, "model"
+    seq = "model" if s % n_ep == 0 and s >= n_ep else None
+    x_pl = shd.placements(shd.P(shd.dp_for_batch(mesh, b), seq, None), mesh)
+    split = [p.is_shard() for p in x_pl]
+    if torch.is_grad_enabled() and not all(split):
+        raise ValueError(f"expert-parallel training needs the tokens "
+                         f"({b}, {s}) split over every mesh axis "
+                         f"{mesh.shape}")
+    model_dim = mesh.dim("model")
+    xl = xd.redistribute(dm, x_pl).to_local(grad_placements=x_pl)
+
+    def grad_pl(shard_model: bool):
+        return [Shard(0) if (m == model_dim and shard_model) else
+                (Partial() if split[m] else Replicate()) for m in range(nd)]
+
+    router = dt(moe.router).redistribute(dm, rep).to_local(
+        grad_placements=grad_pl(False))
+    ep = [Shard(0) if m == model_dim else Replicate() for m in range(nd)]
+    experts = [dt(w).redistribute(dm, ep).to_local(
+        grad_placements=grad_pl(True)) for w in (moe.wi, moe.wg, moe.wo)]
+    group = mesh.group("model")
+
+    def exchange(buf: torch.Tensor, back: bool) -> torch.Tensor:
+        # to the owners: (E, cap, D) -> (E_loc, M * cap, D); back: inverse
+        cap = buf.shape[1] // (1 if not back else n_ep)
+        if back:
+            buf = buf.reshape(e_loc, n_ep, cap, d).transpose(0, 1)
+            buf = buf.reshape(cfg.n_experts, cap, d)
+        buf = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+            buf.contiguous(), None, None, group))
+        if back:
+            return buf
+        buf = buf.reshape(n_ep, e_loc, cap, d).transpose(0, 1)
+        return buf.reshape(e_loc, n_ep * cap, d)
+
+    yl, aux_l = moe.routed(xl.reshape(-1, d), router, experts, exchange)
+    # back on x's layout, so that the residual sum and its gradient keep it
+    y = DTensor.from_local(yl.reshape(xl.shape), dm, x_pl,
+                           run_check=False).redistribute(dm, [
+                               Replicate() if p.is_partial() else p
+                               for p in xd.placements])
+    if cfg.shared_expert_ff:
+        y = y + moe.shared(xd)
+    # each rank's Switch loss, averaged over the whole mesh (a pmean)
+    aux = DTensor.from_local(aux_l / mesh.size, dm, [Partial()] * nd,
+                             run_check=False).full_tensor()
+    return y, aux

@@ -21,13 +21,17 @@ state per token, updated in place: mLSTM {"c", "n", "m"}, sLSTM {"c",
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding as shd
+from repro_torch.models.attention import split_heads
 from repro_torch.models.layers import normal_
+from repro_torch.models.sharding import fsdp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +51,43 @@ class XLSTMConfig:
 
 
 # ----------------------------------------------------------------- mLSTM ---
+
+def _mlstm_chunks(qc: int, q, k, v, log_i, log_f):
+    """The mLSTM over the whole sequence, chunk by chunk from a zero state:
+    (B, H, T, hd)."""
+    b, h, t, hd = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    state = (torch.zeros((b, h, hd, hd), **f32),
+             torch.zeros((b, h, hd), **f32), torch.zeros((b, h), **f32))
+    ys = []
+    for c0 in range(0, t, qc):
+        sl = slice(c0, c0 + qc)
+        y, state = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                log_i[..., sl], log_f[..., sl], state)
+        ys.append(y)
+    return torch.cat(ys, dim=2)
+
+
+def _mlstm_step(head_dim: int, q, k, v, log_i, log_f, c, n, m):
+    """One recurrent mLSTM step (``xlstm.py:168-190``): q / k / v (B, H,
+    1, hd), the gate logs (B, H, 1), the state c (B, H, hd, hd), n (B, H,
+    hd), m (B, H) -> (y (B, H, hd), the new c, n, m)."""
+    q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]          # (B, H, hd)
+    li, lf = log_i[:, :, 0], log_f[:, :, 0]               # (B, H)
+    m_new = torch.maximum(lf + m, li)
+    decay = torch.exp(lf + m - m_new)
+    inp_w = torch.exp(li - m_new)
+    kf, vf = k.float(), v.float()
+    c_new = decay[..., None, None] * c + inp_w[..., None, None] \
+        * kf[..., :, None] * vf[..., None, :]
+    n_new = decay[..., None] * n + inp_w[..., None] * kf
+    scale = 1.0 / math.sqrt(head_dim)
+    qf = q.float()
+    num = torch.einsum("bhd,bhde->bhe", qf, c_new) * scale
+    den = torch.einsum("bhd,bhd->bh", qf, n_new) * scale
+    y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return y, c_new, n_new, m_new
+
 
 def _mlstm_chunk(q, k, v, log_i, log_f, state):
     """One chunk of the parallel mLSTM (``xlstm.py:62-110``).  q / k / v
@@ -118,66 +159,45 @@ class MLSTM(nn.Module):
     def _qkvif(self, xu: torch.Tensor):
         """q / k / v (B, H, T, hd) and the float32 gate logs (B, H, T)
         (``xlstm.py:113-122``)."""
-        cfg = self.cfg
-        b, t, _ = xu.shape
-
         def heads(m):
-            return (xu @ m).reshape(b, t, cfg.n_heads,
-                                    cfg.head_dim).transpose(1, 2)
-        log_i = (xu @ self.wi).float().transpose(1, 2)
-        log_f = F.logsigmoid((xu @ self.wf).float()).transpose(1, 2)
-        return heads(self.wq), heads(self.wk), heads(self.wv), log_i, log_f
+            return split_heads(xu @ m, self.cfg.n_heads).transpose(1, 2)
+        log_i = (xu @ fsdp(self.wi)).float().transpose(1, 2)
+        log_f = shd.elementwise(F.logsigmoid,
+                                (xu @ fsdp(self.wf)).float()).transpose(1, 2)
+        return (heads(fsdp(self.wq)), heads(fsdp(self.wk)),
+                heads(fsdp(self.wv)), log_i, log_f)
 
     def _out(self, y: torch.Tensor, xu, z, dtype) -> torch.Tensor:
         y = y.to(dtype) + xu * self.skip_w.to(xu.dtype)
-        return (y * F.silu(z)) @ self.down_proj
+        return (y * F.silu(z)) @ fsdp(self.down_proj)
 
     def forward(self, x: torch.Tensor, rope=None) -> torch.Tensor:
         """x (B, T, D) -> (B, T, D), chunk by chunk (``xlstm.py:125-158``)."""
         cfg = self.cfg
         b, t, _ = x.shape
-        xu, z = (x @ self.up_proj).chunk(2, dim=-1)
+        xu, z = (x @ fsdp(self.up_proj)).chunk(2, dim=-1)
         q, k, v, log_i, log_f = self._qkvif(xu)
         qc = min(cfg.chunk, t)
         if t % qc:
             raise ValueError(f"seq {t} must be a multiple of the mLSTM chunk "
                              f"{qc}")
-        h, hd = cfg.n_heads, cfg.head_dim
-        f32 = dict(dtype=torch.float32, device=x.device)
-        state = (torch.zeros((b, h, hd, hd), **f32),
-                 torch.zeros((b, h, hd), **f32), torch.zeros((b, h), **f32))
-        ys = []
-        for c0 in range(0, t, qc):
-            sl = slice(c0, c0 + qc)
-            y, state = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                                    log_i[..., sl], log_f[..., sl], state)
-            ys.append(y)
-        y = torch.cat(ys, dim=2).transpose(1, 2).reshape(b, t, cfg.d_inner)
+        y = shd.rows_local(functools.partial(_mlstm_chunks, qc),
+                           (q, k, v, log_i, log_f))
+        y = y.transpose(1, 2).reshape(b, t, cfg.d_inner)
         return self._out(y, xu, z, x.dtype)
 
     def decode(self, x: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
                m: torch.Tensor) -> torch.Tensor:
         """One-token step (``xlstm.py:168-190``).  x (B, 1, D); c (B, H,
         hd, hd), n (B, H, hd), m (B, H) updated in place."""
-        xu, z = (x @ self.up_proj).chunk(2, dim=-1)
+        xu, z = (x @ fsdp(self.up_proj)).chunk(2, dim=-1)
         q, k, v, log_i, log_f = self._qkvif(xu)
-        q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]          # (B, H, hd)
-        li, lf = log_i[:, :, 0], log_f[:, :, 0]               # (B, H)
-        m_new = torch.maximum(lf + m, li)
-        decay = torch.exp(lf + m - m_new)
-        inp_w = torch.exp(li - m_new)
-        kf, vf = k.float(), v.float()
-        c_new = decay[..., None, None] * c + inp_w[..., None, None] \
-            * kf[..., :, None] * vf[..., None, :]
-        n_new = decay[..., None] * n + inp_w[..., None] * kf
-        scale = 1.0 / math.sqrt(self.cfg.head_dim)
-        qf = q.float()
-        num = torch.einsum("bhd,bhde->bhe", qf, c_new) * scale
-        den = torch.einsum("bhd,bhd->bh", qf, n_new) * scale
-        y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
-        c.copy_(c_new)
-        n.copy_(n_new)
-        m.copy_(m_new)
+        y, c_new, n_new, m_new = shd.rows_local(
+            functools.partial(_mlstm_step, self.cfg.head_dim),
+            (q, k, v, log_i, log_f, c, n, m))
+        shd.assign(c, c_new)
+        shd.assign(n, n_new)
+        shd.assign(m, m_new)
         return self._out(y.reshape(x.shape[0], 1, self.cfg.d_inner), xu, z,
                          x.dtype)
 
@@ -226,19 +246,26 @@ class SLSTM(nn.Module):
         normal_(self.up_proj, gen, s)
         normal_(self.down_proj, gen, s)
 
-    def _gate(self, g: str, x_t, hp) -> torch.Tensor:
-        return ((x_t @ getattr(self, f"w{g}") + hp @ getattr(self, f"r{g}"))
-                .float() + getattr(self, f"b{g}"))
+    def _gates(self) -> tuple:
+        """w, r and b of each gate, in _GATES order, 12 tensors."""
+        return tuple(getattr(self, f"{kind}{g}") for g in _GATES
+                     for kind in "wrb")
 
-    def _step(self, carry, x_t):
+    def _step(self, carry, x_t, gates=None):
         """x_t (B, D); carry (c, n, m, h_prev), each (B, D) float32
-        (``xlstm.py:209-226``)."""
+        (``xlstm.py:209-226``); `gates` the weights (default the
+        module's)."""
+        gates = self._gates() if gates is None else gates
         c, n, m, h_prev = carry
         hp = h_prev.to(x_t.dtype)
-        z = torch.tanh(self._gate("z", x_t, hp))
-        i_log = self._gate("i", x_t, hp)
-        f_log = F.logsigmoid(self._gate("f", x_t, hp))
-        o = torch.sigmoid(self._gate("o", x_t, hp))
+
+        def gate(i):
+            w, r, b = gates[3 * i:3 * i + 3]
+            return ((x_t @ fsdp(w) + hp @ fsdp(r)).float() + b)
+        z = torch.tanh(gate(0))
+        i_log = gate(1)
+        f_log = shd.elementwise(F.logsigmoid, gate(2))
+        o = torch.sigmoid(gate(3))
         m_new = torch.maximum(f_log + m, i_log)
         i_g = torch.exp(i_log - m_new)
         f_g = torch.exp(f_log + m - m_new)
@@ -250,20 +277,26 @@ class SLSTM(nn.Module):
         return c_new, n_new, m_new, h_new
 
     def _ffn(self, h: torch.Tensor) -> torch.Tensor:
-        a, b = (h @ self.up_proj).chunk(2, dim=-1)
-        return (F.gelu(a, approximate="tanh") * b) @ self.down_proj
+        a, b = (h @ fsdp(self.up_proj)).chunk(2, dim=-1)
+        return (F.gelu(a, approximate="tanh") * b) @ fsdp(self.down_proj)
 
     def forward(self, x: torch.Tensor, rope=None) -> torch.Tensor:
         """x (B, T, D) -> (B, T, D), sequential over T
         (``xlstm.py:229-240``)."""
+        h = shd.rows_local(self._recur, (x,), self._gates())
+        return self._ffn(h.to(x.dtype))
+
+    def _recur(self, x, *gates):
+        """The recurrence over x (B, T, D) from a zero state: the hidden
+        states (B, T, D) float32."""
         b, t, d = x.shape
         zero = torch.zeros((b, d), dtype=torch.float32, device=x.device)
         carry = (zero, zero, zero, zero)
         hs = []
         for i in range(t):
-            carry = self._step(carry, x[:, i])
+            carry = self._step(carry, x[:, i], gates)
             hs.append(carry[3])
-        return self._ffn(torch.stack(hs, dim=1).to(x.dtype))
+        return torch.stack(hs, dim=1)
 
     def decode(self, x: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
                m: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -271,7 +304,7 @@ class SLSTM(nn.Module):
         updated in place."""
         new = self._step((c, n, m, h), x[:, 0])
         for dst, src in zip((c, n, m, h), new):
-            dst.copy_(src)
+            shd.assign(dst, src)
         return self._ffn(new[3].to(x.dtype)[:, None])
 
 

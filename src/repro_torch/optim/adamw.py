@@ -35,6 +35,16 @@ of its step; the fusion that takes the int8 absmax recomputes the moment
 with the other product contracted, so a scale can differ by an ulp, and
 after it a code at a rounding boundary by one step; and the clip scale
 follows from a global norm summed in another order.
+
+Sharded parameters (DTensors laid out by ``models/sharding.py``): each
+moment is a DTensor on its parameter's layout; an int8 moment's codes
+are too, and its scale has the parameter's layout with the last axis
+whole (``launch/specs.py:114-136`` in the reference), so the update
+reads and writes the codes with that axis whole (gathered where the
+parameter shards it).  Every elementwise step runs on the local shards.
+The clip's global norm adds each shard's sum of squares once (a
+replicated shard only on the first rank of its replicas) and
+all-reduces the float64 total over the mesh.
 """
 
 from __future__ import annotations
@@ -108,18 +118,51 @@ def decode_moment(m, shape) -> torch.Tensor:
     return (blocks * scale[..., None]).reshape(shape)
 
 
+def _dtensor(p) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(p, DTensor)
+
+
+def _layouts(p):
+    """(the parameter's placements, the same with its last axis whole)."""
+    from torch.distributed.tensor import Replicate
+    last = p.ndim - 1
+    pl = list(p.placements)
+    return pl, [Replicate() if q.is_shard(last) else q for q in pl]
+
+
+def _zero_moment_sharded(p, cfg: AdamWConfig, int8: bool):
+    """A zero moment of the DTensor `p`, built from local zeros."""
+    from torch.distributed.tensor import DTensor
+    dm = p.device_mesh
+    pl, whole = _layouts(p)
+    local = p.to_local()
+    z = torch.zeros(local.shape, dtype=torch.float32, device=local.device)
+    if cfg.moment_dtype == "float32" or not int8:
+        return DTensor.from_local(z, dm, pl, run_check=False)
+    codes = torch.zeros(local.shape, dtype=torch.int8, device=local.device)
+    # the scale's layout keeps the last axis whole
+    scale = torch.ones((*local.shape[:-1], p.shape[-1] // cfg.block),
+                       dtype=torch.float32, device=local.device)
+    return {"codes": DTensor.from_local(codes, dm, pl, run_check=False),
+            "scale": DTensor.from_local(scale, dm, whole, run_check=False)}
+
+
 def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
                layers: Optional[Mapping[str, int]] = None) -> dict:
     """Zero moments for `params` (name -> tensor), on each parameter's
-    device: ``{"step": 0, "mu": {name: moment}, "nu": {...}}``.  `layers`
-    gives, by name, how many layers the reference stacks the parameter
-    with (``models.convert.stacked_layers``; default 1)."""
+    device (a DTensor's on its layout, see the module docstring):
+    ``{"step": 0, "mu": {name: moment}, "nu": {...}}``.  `layers` gives,
+    by name, how many layers the reference stacks the parameter with
+    (``models.convert.stacked_layers``; default 1)."""
     layers = layers or {}
 
     def zero(name, p):
+        int8 = int8_eligible(p.shape, cfg.block, layers.get(name, 1))
+        if _dtensor(p):
+            return _zero_moment_sharded(p, cfg, int8)
         z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return encode_moment(z, cfg, int8_eligible(
-            p.shape, cfg.block, layers.get(name, 1)))
+        return encode_moment(z, cfg, int8)
     return {"step": 0,
             "mu": {n: zero(n, p) for n, p in params.items()},
             "nu": {n: zero(n, p) for n, p in params.items()}}
@@ -129,10 +172,26 @@ def global_norm(grads) -> torch.Tensor:
     """The float32 l2 norm of every gradient: each tensor's float32 sum of
     squares, added in float64, the root rounded once.  The reference adds
     its stacked leaves' sums in float32 in sorted-name order, so the two
-    differ within a few float32 ulps."""
-    sums = torch.stack([torch.sum(torch.square(g.float())).double()
-                        for g in grads])
-    return torch.sqrt(sums.sum()).float()
+    differ within a few float32 ulps.  DTensor gradients add each local
+    shard's sum once (on the first rank of its replicas), and the float64
+    total is all-reduced over the mesh: a plain tensor, the same on every
+    rank."""
+    sums, mesh = [], None
+    for g in grads:
+        if _dtensor(g):
+            mesh = g.device_mesh
+            coord = mesh.get_coordinate()
+            first = all(c == 0 for c, q in zip(coord, g.placements)
+                        if not q.is_shard())
+            g = g.to_local() if first else g.to_local()[:0]
+        sums.append(torch.sum(torch.square(g.float())).double())
+    total = torch.stack(sums).sum()
+    if mesh is not None:
+        import torch.distributed._functional_collectives as funcol
+        for m in range(mesh.ndim):
+            total = funcol.wait_tensor(funcol.all_reduce(
+                total, "sum", mesh.get_group(m)))
+    return torch.sqrt(total).float()
 
 
 @torch.no_grad()
@@ -153,11 +212,15 @@ def adamw_update(state: dict, params: Mapping[str, torch.Tensor],
     c1, c2 = _f32(1 - cfg.b1), _f32(1 - cfg.b2)
     wd, eps = _f32(cfg.weight_decay), _f32(cfg.eps)
     for n in names:
-        p = params[n]
+        p, g = params[n], grads[n]
+        sharded = _dtensor(p)
+        if sharded:
+            g = g.redistribute(p.device_mesh, p.placements).to_local()
+            p = p.to_local()
         dev = p.device
-        g = grads[n].float() * scale.to(dev)
-        mu = _fma(b1, decode_moment(state["mu"][n], p.shape), c1 * g)
-        nu = _fma(b2, decode_moment(state["nu"][n], p.shape), (c2 * g) * g)
+        g = g.float() * scale.to(dev)
+        mu = _fma(b1, _moment_in(state["mu"][n], p.shape), c1 * g)
+        nu = _fma(b2, _moment_in(state["nu"][n], p.shape), (c2 * g) * g)
         del g
         den = b1c.to(dev) * (torch.sqrt(nu / b2c.to(dev)) + eps)
         pf = p.float()
@@ -165,8 +228,44 @@ def adamw_update(state: dict, params: Mapping[str, torch.Tensor],
         del den
         p.copy_(_fma(-lr_t, x, pf))
         del x, pf
-        int8 = isinstance(state["mu"][n], dict)
-        state["mu"][n] = encode_moment(mu, cfg, int8)
-        state["nu"][n] = encode_moment(nu, cfg, int8)
+        state["mu"][n] = _moment_out(mu, state["mu"][n], params[n], cfg)
+        state["nu"][n] = _moment_out(nu, state["nu"][n], params[n], cfg)
     state["step"] = step
     return state, params
+
+
+def _moment_in(m, local_shape) -> torch.Tensor:
+    """The float32 moment of a stored one, as a local tensor in the
+    parameter's layout."""
+    if not _dtensor(m if not isinstance(m, dict) else m["codes"]):
+        return decode_moment(m, local_shape)
+    if not isinstance(m, dict):
+        return m.to_local()
+    from torch.distributed.tensor import DTensor
+    codes, scale = m["codes"], m["scale"]
+    dm, pl = codes.device_mesh, codes.placements
+    whole = scale.placements
+    c = codes.redistribute(dm, whole).to_local()
+    mw = decode_moment({"codes": c, "scale": scale.to_local()}, c.shape)
+    return DTensor.from_local(mw, dm, whole, run_check=False).redistribute(
+        dm, pl).to_local()
+
+
+def _moment_out(x: torch.Tensor, old, param, cfg: AdamWConfig):
+    """A moment stored as `old` was (float32 or int8, plain or on the
+    parameter's layout) from its new float32 local value `x`."""
+    int8 = isinstance(old, dict)
+    if not _dtensor(param):
+        return encode_moment(x, cfg, int8)
+    from torch.distributed.tensor import DTensor
+    dm = param.device_mesh
+    pl, whole = _layouts(param)
+    if not int8:
+        return DTensor.from_local(x, dm, pl, run_check=False)
+    xw = DTensor.from_local(x, dm, pl, run_check=False).redistribute(
+        dm, whole).to_local()
+    enc = encode_moment(xw, cfg, True)
+    return {"codes": DTensor.from_local(enc["codes"], dm, whole,
+                                        run_check=False).redistribute(dm, pl),
+            "scale": DTensor.from_local(enc["scale"], dm, whole,
+                                        run_check=False)}

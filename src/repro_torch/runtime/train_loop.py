@@ -17,10 +17,13 @@
   * microbatch gradient accumulation in float32, the remat policy of the
     model config, the cosine LR.
 
-One process and one device: a mesh (the reference's sharded loop) raises
-``NotImplementedError`` until the LM sharding rules are ported (ROADMAP
-queue 1, item 5).  The step runs eagerly and updates the parameters and
-the optimizer state in place.
+The step runs eagerly and updates the parameters and the optimizer
+state in place.  On a mesh (``launch/mesh.py``; every rank of the process
+group runs the loop) the model and the AdamW state are laid out by
+``models/sharding.py``, each batch enters split over the dp axes
+(``batch_spec``), the newest checkpoint is restored onto the mesh
+(elastic: it may have been written on another mesh, or none), and rank 0
+writes the gathered checkpoints.
 """
 
 from __future__ import annotations
@@ -40,16 +43,15 @@ from repro_torch.checkpoint.ckpt import (AsyncCheckpointer, latest_step,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import rank
+from repro_torch.models import sharding as shd
 from repro_torch.models.convert import (load_train_state, stacked_layers,
-                                        train_state)
+                                        train_state, train_state_shardings)
 from repro_torch.models.model import DecoderLM, init_params, loss_fn
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
 
 log = logging.getLogger("repro_torch.train")
-
-_NO_MESH = ("a mesh: the LM sharding rules (models/sharding.py) are not "
-            "ported yet (ROADMAP queue 1, item 5)")
 
 
 class StragglerAbort(RuntimeError):
@@ -80,13 +82,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     the loss and its gradients (summed over ``loop.microbatches`` slices
     of the batch in float32, then averaged), then one AdamW step at the
     cosine LR of `step`.  The parameters and the state are updated in
-    place; the loss is a float32 scalar tensor, not synchronised."""
-    if mesh is not None:
-        raise NotImplementedError(f"make_train_step with {_NO_MESH}")
-
+    place; the loss is a float32 scalar tensor, not synchronised.  On
+    `mesh` the parameters and the state must be laid out on it
+    (``shard_model``, ``shard_opt_state``) and the batch is the global
+    one."""
     def grads_of(params, tokens, targets) -> tuple:
         leaves = list(params.parameters())
-        loss = loss_fn(params, cfg, tokens, targets)
+        loss = loss_fn(params, cfg, tokens, targets, mesh)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def train_step(params: DecoderLM, opt_state: dict, batch: dict, step):
@@ -97,7 +99,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         if loop.microbatches > 1:
             b = tokens.shape[0] // loop.microbatches
             loss = torch.zeros((), dtype=torch.float32, device=dev)
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            acc = [torch.zeros_like(p, dtype=torch.float32)
                    for p in params.parameters()]
             for i in range(loop.microbatches):
                 sl = slice(i * b, (i + 1) * b)
@@ -128,8 +130,8 @@ def run_training(cfg: ModelConfig, *, mesh=None,
                  stop_after: Optional[int] = None, device=None,
                  params: Optional[DecoderLM] = None,
                  batches: Optional[Callable[[int], dict]] = None) -> dict:
-    """Run (or resume) training.  Returns {params, losses, resumed,
-    first_step}.
+    """Run (or resume) training, on `mesh` when one is given.  Returns
+    {params, losses, resumed, first_step}.
 
     `device` (None: the card, raising without one) holds the model and
     the batches.  `params` starts from given weights instead of
@@ -141,8 +143,6 @@ def run_training(cfg: ModelConfig, *, mesh=None,
     `inject_straggler_at`: test hook, sleeps 0.5 s in that step.
     `stop_after`: simulate a preemption after that step (checkpointing
     first), the LR schedule still pinned to ``loop.total_steps``."""
-    if mesh is not None:
-        raise NotImplementedError(f"run_training with {_NO_MESH}")
     loop = loop or TrainLoopConfig()
     dev = params.device if params is not None else resolve_device(device)
     if batches is None:
@@ -151,22 +151,30 @@ def run_training(cfg: ModelConfig, *, mesh=None,
                                 device=dev).batch
     model = params if params is not None else init_params(cfg, loop.seed,
                                                           dev)
+    model = shd.shard_model(model, mesh)
     opt_state = adamw_init(dict(model.named_parameters()), opt_cfg,
                            stacked_layers(model))
+    sharded = shd.mesh_of(model.embed.table) is not None
 
     step0, resumed = 0, False
     latest = latest_step(loop.ckpt_dir)
     if latest is not None:
-        restored = restore_checkpoint(loop.ckpt_dir, latest,
-                                      train_state(model, opt_state, spec=True),
-                                      device=dev)
+        restored = restore_checkpoint(
+            loop.ckpt_dir, latest, train_state(model, opt_state, spec=True),
+            train_state_shardings(model, opt_state) if sharded else None,
+            device=dev)
         opt_state = load_train_state(restored, model)
         del restored
         step0, resumed = latest, True
         log.info("resumed from step %d", step0)
 
-    step_fn = make_train_step(cfg, opt_cfg, loop)
+    step_fn = make_train_step(cfg, opt_cfg, loop, mesh)
     ckpt = AsyncCheckpointer(loop.ckpt_dir)
+
+    def save(step: int) -> None:
+        tree = train_state(model, opt_state)   # gathered on every rank
+        if rank() == 0:
+            ckpt.save(step, tree)
     losses: list = []
     durations: list = []
     slow_streak = 0
@@ -188,7 +196,7 @@ def run_training(cfg: ModelConfig, *, mesh=None,
                 log.warning("straggling step %d: %.3fs vs median %.3fs "
                             "(streak %d)", step, dt, med, slow_streak)
                 if slow_streak >= loop.straggler_limit:
-                    ckpt.save(step + 1, train_state(model, opt_state))
+                    save(step + 1)
                     ckpt.wait()
                     raise StragglerAbort(
                         f"{slow_streak} consecutive slow steps at {step}")
@@ -201,9 +209,9 @@ def run_training(cfg: ModelConfig, *, mesh=None,
         if (step + 1) % loop.log_every == 0:
             log.info("step %d loss %.4f (%.3fs)", step + 1, loss, dt)
         if (step + 1) % loop.ckpt_every == 0 or step + 1 == loop.total_steps:
-            ckpt.save(step + 1, train_state(model, opt_state))
+            save(step + 1)
         if stop_after is not None and step + 1 >= stop_after:
-            ckpt.save(step + 1, train_state(model, opt_state))
+            save(step + 1)
             break
     ckpt.wait()
     return {"params": model, "losses": losses, "resumed": resumed,

@@ -137,10 +137,27 @@ def test_moe_top_k_ties_go_to_the_lower_index():
     np.testing.assert_array_equal(idx.numpy(), [[0, 1], [1, 3]])
 
 
-def test_moe_mesh_raises():
-    _, _, mod = _moe_pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        pmoe.moe_block(mod, torch.zeros((1, 2, 32)), mesh=object())
+def test_moe_mesh_raises(tmp_path):
+    """Expert parallelism on a mesh of one rank (a gloo group of one: the
+    experts' all_to_all runs on it) gives the block without a mesh, y and
+    aux; a mesh without a process group is the block itself."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    _, _, mod = _moe_pair(seed=3)
+    x = torch.from_numpy(_x((2, 8, 32), 5))
+    y0, aux0 = pmoe.moe_block(mod, x)
+    y1, aux1 = pmoe.moe_block(mod, x, make_debug_mesh("cpu"))
+    assert torch.equal(y1, y0) and torch.equal(aux1, aux0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_debug_mesh("cpu")
+        y, aux = pmoe.moe_block(mod, x, mesh)
+        torch.testing.assert_close(y.full_tensor(), y0, rtol=1e-6,
+                                   atol=1e-6)
+        torch.testing.assert_close(aux, aux0, rtol=1e-6, atol=0)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("shared", [0, 16])

@@ -246,6 +246,10 @@ def test_train_cli_runs_on_the_cpu(tmp_path):
 
 
 def test_train_cli_resumes_and_rejects_a_mesh(tmp_path):
+    """The CLI resumes its checkpoint; with --mesh debug it makes a process
+    group of its one rank, restores the unsharded checkpoint onto the
+    ("data", "model") mesh of (1, 1) and trains 2 steps on it."""
+    import torch.distributed as dist
     argv = ["--arch", "qwen3-1.7b", "--smoke", "--steps", "2", "--device",
             "cpu", "--ckpt-dir", str(tmp_path)]
     first = ptrain_cli.main(argv)
@@ -253,8 +257,14 @@ def test_train_cli_resumes_and_rejects_a_mesh(tmp_path):
     again = ptrain_cli.main(argv[:3] + ["--steps", "3"] + argv[5:])
     assert again["resumed"] and again["first_step"] == 2
     assert len(again["losses"]) == 1
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ptrain_cli.main(argv + ["--mesh", "debug"])
+    meshed = ptrain_cli.main(argv[:3] + ["--steps", "5"] + argv[5:]
+                             + ["--mesh", "debug"])
+    assert meshed["resumed"] and meshed["first_step"] == 3
+    assert len(meshed["losses"]) == 2 and np.isfinite(meshed["losses"]).all()
+    assert meshed["params"].embed.table.device_mesh.mesh_dim_names == (
+        "data", "model")
+    assert not dist.is_initialized()     # the CLI's own group is gone
+    assert latest_step(str(tmp_path)) == 5
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
@@ -265,8 +275,12 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PT.run_training(pc, loop=PT.TrainLoopConfig(
             total_steps=1, ckpt_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PT.run_training(pc, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PT.make_train_step(pc, PA.AdamWConfig(), PT.TrainLoopConfig(),
-                           mesh=object())
+    # a mesh runs: the debug mesh of one rank without a process group
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh("cpu")
+    out = PT.run_training(pc, mesh=mesh, device="cpu",
+                          global_batch=2, seq_len=8, loop=PT.TrainLoopConfig(
+                              total_steps=1, ckpt_dir=str(tmp_path / "m")))
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+    assert callable(PT.make_train_step(pc, PA.AdamWConfig(),
+                                       PT.TrainLoopConfig(), mesh=mesh))
