@@ -90,7 +90,19 @@ D=10,000, 6,238 train / 1,559 test rows), and the decoder LM:
    mesh (qwen3 cut to 2 layers: the first resumed loss equal), and the dry
    run of ``LS_DRY_CELLS`` in processes of their own under a fake group
    of 256 / 512 ranks, each cell's bytes a device, FLOPs, collectives and
-   roofline row on this card's published peaks.
+   roofline row on this card's published peaks;
+10. the four examples (``phase_examples``), each ``examples/*_torch.py``
+   ``main([])`` at the JAX examples' sizes and counted on its own: the
+   quickstart (its accuracies against the plain route's labels, its two
+   1-bit sweeps against the per-point loop), extreme classification at
+   C = 4,096, D = 8,192 (both models' kernel labels equal to plain on the
+   2,048 test rows), the 100M-word stream (12 shards through the dp fit on
+   the example's own NCCL group of one rank, one shard's fit profiled),
+   and the LM head example (60 steps a head, the loghd run repeated
+   through the head's plain version: both fall, within LT_PLAIN_ATOL);
+   then each kernel against plain at the shapes the examples gave it, and
+   timing rows there (``bundle_sim`` over 4,096 prototypes beside
+   ``F.normalize(h) @ m.T``).
 
 It checks each kernel against its plain version (``flip_corrupt`` bit for
 bit, batched over 1 and 18 points at bits 1, 2, 4 and 8 on LogHD's,
@@ -3361,6 +3373,469 @@ def phase_lm_sharded(torch, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------- the four examples --
+
+EXAMPLES_DIR = ROOT / "examples"
+# the phase's wall, checks and timings included (36 s on the H100: the
+# four runs take 15 s at the JAX examples' sizes, the rest is checks and
+# timing)
+EX_PHASE_LIMIT = 120.0
+EX_LM_STEPS = 60            # the LM example's default --steps
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (``examples/`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(torch, mod, argv: list) -> tuple:
+    """``mod.main(argv)`` as a user runs it, counted: every launch count is
+    set to 0 just before and read just after.  Returns (result, launches,
+    bundle_sim's batches, wall s)."""
+    from repro_torch.kernels import common
+    torch.cuda.synchronize()
+    common.reset_launches()
+    t0 = time.perf_counter()
+    out = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(common.launches)
+    return out, launches, bundle_sim_batches(), wall
+
+
+def counts_equal(acc, correct, n: int) -> bool:
+    """An accuracy (or matrix of them) holds the same counts of correct
+    labels out of `n` as `correct` (``tests/test_torch_slice.py``'s rule:
+    the mean may round count / n an ulp apart)."""
+    import numpy as np
+    return np.array_equal(np.rint(np.asarray(acc, np.float64) * n),
+                          np.rint(np.asarray(correct, np.float64)))
+
+
+def ex_quickstart(torch, dev) -> dict:
+    """``examples/quickstart_torch.py`` at its defaults; its clean
+    accuracies against the plain route's labels, its two sweeps against
+    the per-point loop of one-point ``corrupted_materialized`` calls and
+    the family's predict (equal counts of correct labels)."""
+    import numpy as np
+    from repro_torch.api import dispatch
+    from repro_torch.core.evaluate import trial_seeds
+    qs = load_example("quickstart_torch")
+    r, launches, batches, wall = run_example(torch, qs, [])
+    log(f"example quickstart: {wall:.2f} s, launches {launches}")
+    for k in ("hdc_encode", "bundle_update", "bundle_sim", "profile_decode",
+              "flip_corrupt"):
+        check(launches.get(k, 0) >= 1, f"quickstart launched no {k}")
+    check(launches.get("flip_corrupt") == 2,
+          f"quickstart: flip_corrupt launched {launches.get('flip_corrupt')} "
+          f"times, not once a sweep")
+    h, y = r["h_te"], torch.as_tensor(r["y_te"], device=dev)
+    n = len(r["y_te"])
+    diff = {}
+    for name, clf in r["classifiers"].items():
+        kern = dispatch.predict_encoded(clf.model, h)
+        plain = dispatch.predict_encoded(clf.model, h, use_kernels=False)
+        diff[name] = int((kern != plain).sum())
+        check(counts_equal(r[f"acc_{name}"], int((plain == y).sum()), n),
+              f"quickstart {name}: accuracy {r[f'acc_{name}']} is not the "
+              f"plain route's {int((plain == y).sum())} / {n}")
+    for name in ("loghd", "sparsehd"):
+        model = r["classifiers"][name].model
+        q = model.quantized(1)
+        rows = trial_seeds(torch.Generator().manual_seed(0), qs.N_TRIALS,
+                           len(q.to_dict()) - 1)
+        loop = np.zeros((len(qs.P_GRID), qs.N_TRIALS))
+        for i, p in enumerate(qs.P_GRID):
+            for t in range(qs.N_TRIALS):
+                noisy = q.corrupted_materialized(p, rows[t], "hv")
+                loop[i, t] = int((noisy.predict_encoded(h) == y).sum())
+        check(counts_equal(r[f"sweep_{name}"], loop, n),
+              f"quickstart {name}: sweep {r[f'sweep_{name}']} differs from "
+              f"the per-point loop {loop / n}")
+        check(bool(np.isfinite(r[f"sweep_{name}"]).all()), "sweep finite")
+    log(f"example quickstart: accuracies conventional "
+        f"{r['acc_conventional']:.4f}, LogHD {r['acc_loghd']:.4f} (n = "
+        f"{r['n_bundles']}), SparseHD {r['acc_sparsehd']:.4f}; kernel labels "
+        f"differing from plain {diff}; sweeps equal to the per-point loop")
+    return dict(result=r, launches=launches, bs_batches=batches, wall=wall,
+                differing=diff, module=qs)
+
+
+def ex_extreme(torch, dev) -> dict:
+    """``examples/extreme_classification_torch.py`` at its defaults; both
+    models' kernel labels against the plain route's on the 2,048 test
+    rows (0 may differ)."""
+    from repro_torch.api import dispatch
+    xc = load_example("extreme_classification_torch")
+    torch.cuda.reset_peak_memory_stats()
+    r, launches, batches, wall = run_example(torch, xc, [])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"example extreme: {wall:.2f} s (encode {r['encode_s']:.3f} s), "
+        f"peak {peak} B, launches {launches}")
+    for k in ("hdc_encode", "bundle_sim", "profile_decode"):
+        check(launches.get(k, 0) >= 1, f"extreme launched no {k}")
+    diff = {}
+    for name, clf in r["classifiers"].items():
+        kern = dispatch.predict_encoded(clf.model, r["h_te"])
+        plain = dispatch.predict_encoded(clf.model, r["h_te"],
+                                         use_kernels=False)
+        diff[name] = int((kern != plain).sum())
+        check(diff[name] == 0, f"extreme {name}: {diff[name]} of "
+              f"{len(kern)} kernel labels differ from plain")
+    log(f"example extreme: conventional {r['conventional_bytes']} B, acc "
+        f"{r['acc_conventional']:.4f}, {r['qps_conventional']:.1f} queries/s; "
+        f"LogHD n = {r['n_bundles']}, {r['loghd_bytes']} B, acc "
+        f"{r['acc_loghd']:.4f}, {r['qps_loghd']:.1f} queries/s; rows "
+        f"differing from plain {diff}")
+    return dict(result=r, launches=launches, bs_batches=batches, wall=wall,
+                differing=diff, peak_bytes=peak)
+
+
+def ex_train_100m(torch, dev) -> dict:
+    """``examples/train_100m_torch.py`` at its defaults: 12 shards of
+    4,096 rows at D = 2,048 through ``fused_onlinehd_fit_dp`` on the
+    example's own NCCL group of one rank, int8 all-reduce."""
+    import math
+    import torch.distributed as dist
+    t100 = load_example("train_100m_torch")
+    r, launches, batches, wall = run_example(torch, t100, [])
+    check(not dist.is_initialized(), "train_100m left its group behind")
+    check(launches.get("hdc_encode", 0) == 13,
+          f"train_100m: hdc_encode launched {launches.get('hdc_encode')} "
+          f"times, not once a shard and once for the held-out rows")
+    check(r["ranks"] == 1 and r["examples"] == 12 * 4096, "train_100m run")
+    check(all(math.isfinite(x["acc"]) for x in r["log"])
+          and 0.0 < r["final_acc"] <= 1.0, "train_100m accuracies")
+    check(bool(torch.isfinite(r["protos"]).all()), "train_100m protos")
+    log(f"example train_100m: {wall:.2f} s, {r['words_per_s']:.1f} words/s, "
+        f"superposition acc {r['acc_superposition']:.4f} -> final "
+        f"{r['final_acc']:.4f}, log {r['log']}, launches {launches}")
+    shard = shard_fit_profile(torch, dev, r["protos"])
+    return dict(result={k: v for k, v in r.items() if k != "protos"},
+                launches=launches, bs_batches=batches, wall=wall,
+                shard_fit=shard)
+
+
+def shard_fit_profile(torch, dev, protos) -> dict:
+    """One shard's fit of the stream (4,096 unit rows at D = 2,048, one
+    epoch of 16 global steps of 256, int8 all-reduce) on a group of one
+    rank made for it: its wall, its device work and kernels under the
+    profiler, and the device's idle share."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.api import fit_engine
+    from repro_torch.hdc.conventional import l2_normalize
+    from repro_torch.launch.mesh import make_debug_mesh
+    g = torch.Generator(device=dev).manual_seed(25)
+    h = l2_normalize(torch.randn((4096, protos.shape[1]), generator=g,
+                                 device=dev))
+    y = torch.randint(0, protos.shape[0], (4096,), generator=g, device=dev)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_debug_mesh(dev)
+
+        def fit():
+            return fit_engine.fused_onlinehd_fit_dp(
+                protos, h, y, lr=3e-3, batch_size=256, epochs=1, mesh=mesh,
+                compress="int8")
+        fit()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy, count, top = profile_calls(torch, fit, calls=3)
+    finally:
+        dist.destroy_process_group()
+    idle = 1.0 - busy / wall_ms
+    log(f"example train_100m, one shard's fit: wall {wall_ms:.3f} ms, device "
+        f"{busy:.4f} ms in {count:.0f} kernels and copies (idle {idle:.4f}); "
+        f"largest: {[(round(ms, 4), name[:50]) for ms, _, name in top[:5]]}")
+    return {"wall_ms": wall_ms, "device_ms": busy, "device_events": count,
+            "idle": idle}
+
+
+def ex_lm(torch, dev) -> dict:
+    """``examples/lm_loghd_head_torch.py`` at its defaults (60 steps a
+    head); the loghd run repeated with the head through its plain version:
+    both routes' last five losses below loss[0], and the kernel route's
+    losses within LT_PLAIN_ATOL of the plain route's."""
+    import numpy as np
+    from repro_torch.api import dispatch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.loghd_head import loghd_head_logits_ref
+    lm = load_example("lm_loghd_head_torch")
+    r, launches, batches, wall = run_example(torch, lm, [])
+    check(launches.get("loghd_head") == EX_LM_STEPS and set(launches) == {
+        "loghd_head"}, f"LM example launches {launches}: not one loghd_head "
+        f"launch a loghd step")
+    real = dispatch.loghd_head_autograd
+    dispatch.loghd_head_autograd = loghd_head_logits_ref
+    common.reset_launches()
+    try:
+        plain, _ = lm.train(lm.example_config("loghd"), EX_LM_STEPS,
+                            device=dev)
+    finally:
+        dispatch.loghd_head_autograd = real
+    check(not common.launches, f"plain-head run launched {common.launches}")
+    kern = r["loghd"]["losses"]
+    gap = float(np.max(np.abs(np.asarray(kern) - np.asarray(plain))))
+    for route, losses in (("kernel", kern), ("plain", plain),
+                          ("dense", r["dense"]["losses"])):
+        check(bool(np.isfinite(losses).all())
+              and np.mean(losses[-5:]) < losses[0],
+              f"LM example {route}: loss does not fall: {losses[0]} -> "
+              f"{losses[-5:]}")
+    check(gap <= LT_PLAIN_ATOL, f"LM example: kernel and plain losses "
+          f"{gap:.3e} apart")
+    log(f"example lm_loghd_head: {wall:.2f} s; dense {r['dense']['losses'][0]:.4f}"
+        f" -> {np.mean(r['dense']['losses'][-5:]):.4f}; loghd {kern[0]:.4f} "
+        f"-> {np.mean(kern[-5:]):.4f} (last five {kern[-5:]}); plain head "
+        f"{plain[0]:.4f} -> {np.mean(plain[-5:]):.4f}, largest gap {gap:.3e}")
+    return dict(result=r, launches=launches, bs_batches=batches, wall=wall,
+                plain_losses=plain, plain_gap=gap)
+
+
+def ex_kernel_checks(torch, dev, ex: dict) -> dict:
+    """Each kernel against its plain version at the shapes the examples
+    gave it that no earlier phase launched (outside the counted runs), at
+    phase_kernels' tolerances; then the timing rows at those shapes."""
+    from repro_torch.core.bundling import symbol_targets
+    from repro_torch.hdc.conventional import (class_prototypes, l2_normalize,
+                                              onlinehd_coefficients)
+    from repro_torch.kernels.bundle_sim import (bundle_similarity,
+                                                bundle_similarity_ref)
+    from repro_torch.kernels.bundle_update import (bundle_update,
+                                                   bundle_update_ref)
+    from repro_torch.kernels.flip_corrupt import (flip_corrupt_grid,
+                                                  flip_corrupt_grid_ref)
+    from repro_torch.kernels.hdc_encode import hdc_encode, hdc_encode_plain
+    from repro_torch.kernels.loghd_head import (loghd_head_logits,
+                                                loghd_head_logits_ref)
+    from repro_torch.kernels.profile_decode import (profile_decode_scores,
+                                                    profile_decode_scores_ref)
+    from repro_torch.precision import full_f32
+    tol = TOL["float32"]
+    g = torch.Generator(device=dev).manual_seed(24)
+    xr = ex["extreme"]["result"]
+    h = xr["h_te"].contiguous()
+    conv = xr["classifiers"]["conventional"].model
+    log_m = xr["classifiers"]["loghd"].model
+    ops = {}
+    # bundle_sim over the 4,096 prototypes and the 14 bundles
+    ops["bs_conv"] = (h, l2_normalize(conv.protos).contiguous())
+    ops["bs_log"] = (h, l2_normalize(log_m.bundles).contiguous())
+    for key in ("bs_conv", "bs_log"):
+        hh, m = ops[key]
+        got, want = bundle_similarity(hh, m), bundle_similarity_ref(hh, m)
+        torch.cuda.synchronize()
+        log(f"bundle_sim     {tuple(hh.shape) + (m.shape[0],)}: max_abs_err "
+            f"{max_err(got, want):.3e}")
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    # profile_decode over the 4,096 profiles of 14 bundles
+    acts = bundle_similarity(*ops["bs_log"])
+    prof = log_m.profiles.float().contiguous()
+    got, want = profile_decode_scores(acts, prof), profile_decode_scores_ref(
+        acts, prof)
+    torch.cuda.synchronize()
+    log(f"profile_decode {tuple(acts.shape) + (prof.shape[0],)}: max_abs_err "
+        f"{max_err(got, want):.3e}")
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    check(torch.equal(got.argmax(-1), want.argmax(-1)),
+          "profile_decode argmax differs from plain")
+    # the quickstart's predicts by value: conventional (1,000, 10,000, 26),
+    # LogHD (1,000, 10,000, 10) and SparseHD (1,000, 3,846, 26) through
+    # bundle_sim, LogHD's profile_decode (1,000, 10, 26), on its own models
+    # and test encodings
+    qr = ex["quickstart"]["result"]
+    qh = qr["h_te"].contiguous()
+    qy = torch.as_tensor(qr["y_te"], device=dev).long()
+    qclf = qr["classifiers"]
+    q_conv, q_log, q_sp = (qclf[n].model for n in ("conventional", "loghd",
+                                                   "sparsehd"))
+    qh_s = l2_normalize(qh[:, q_sp.keep]).contiguous()
+    q_acts = None
+    for name, hh, m in (("conventional", qh, q_conv.protos),
+                        ("loghd", qh, q_log.bundles),
+                        ("sparsehd", qh_s, q_sp.protos)):
+        m = l2_normalize(m).contiguous()
+        got, want = bundle_similarity(hh, m), bundle_similarity_ref(hh, m)
+        torch.cuda.synchronize()
+        log(f"bundle_sim     quickstart {name} "
+            f"{tuple(hh.shape) + (m.shape[0],)}: max_abs_err "
+            f"{max_err(got, want):.3e}")
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        if name == "loghd":
+            q_acts = got
+    q_prof = q_log.profiles.float().contiguous()
+    got = profile_decode_scores(q_acts, q_prof)
+    want = profile_decode_scores_ref(q_acts, q_prof)
+    torch.cuda.synchronize()
+    log(f"profile_decode quickstart {tuple(q_acts.shape) + (q_prof.shape[0],)}"
+        f": max_abs_err {max_err(got, want):.3e}")
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    # bundle_update at the quickstart's fits' minibatch steps: LogHD's Eq. 9
+    # refinement (n = 10, D = 10,000) on its bundles and SparseHD's OnlineHD
+    # retrain (C = 26, D' = 3,846) on the compacted class prototypes it
+    # starts from, each on a batch of the quickstart's encodings with the
+    # fit's own coefficients and with random ones; bitwise repeatable
+    log_cfg, sp_cfg = qclf["loghd"].cfg, qclf["sparsehd"].cfg
+    hb = qh[:log_cfg.refine_batch].contiguous()
+    tt = symbol_targets(q_log.codebook, log_cfg.k).to(dev)[
+        qy[:log_cfg.refine_batch]]
+    m_log = q_log.bundles.contiguous()
+    m_sp = l2_normalize(class_prototypes(qh, qy, q_sp.protos.shape[0])[
+        :, q_sp.keep]).contiguous()
+    hb_s = l2_normalize(qh[:sp_cfg.batch_size, q_sp.keep]).contiguous()
+    updates = {
+        "loghd refine": (m_log, (tt - hb @ m_log.T).contiguous(), hb,
+                         log_cfg.lr),
+        "sparsehd retrain": (m_sp, onlinehd_coefficients(
+            m_sp, hb_s, qy[:sp_cfg.batch_size]).contiguous(), hb_s,
+            sp_cfg.lr)}
+    for name, (m, c, hh, lr) in list(updates.items()):
+        for kind, cc in (("fit", c), ("random", torch.randn(
+                c.shape, generator=g, device=dev) * 0.01)):
+            got = bundle_update(m, cc, hh, lr)
+            again = bundle_update(m, cc, hh, lr)
+            want = bundle_update_ref(m, cc, hh, lr)
+            torch.cuda.synchronize()
+            log(f"bundle_update  quickstart {name} "
+                f"{(m.shape[0],) + tuple(hh.shape)} {kind} coefficients "
+                f"({int((cc != 0).any(1).sum())} of "
+                f"{cc.shape[0]} rows nonzero): max_abs_err "
+                f"{max_err(got, want):.3e}")
+            check(torch.equal(got, again), f"bundle_update quickstart {name} "
+                  f"is not bitwise repeatable")
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    # hdc_encode at the extreme example's training batches and the stream's
+    enc_in = {}
+    for (b, f, d) in ((4096, 256, 8192), (4096, 617, 2048)):
+        x, w, bias, center = enc_in[(b, f, d)] = enc_inputs(torch, dev, g, b,
+                                                            f, d)
+        got = hdc_encode(x, w, bias, center, "cos")
+        with full_f32():
+            want = hdc_encode_plain(x, w, bias, center, "cos")
+        torch.cuda.synchronize()
+        log(f"hdc_encode     ({b}, {f}, {d}) cos: max_abs_err "
+            f"{max_err(got, want):.3e}")
+        check(bool(torch.isclose(got, want, **ENC_TOL).all()),
+              f"hdc_encode ({b}, {f}, {d}) outside rtol 2e-4 / atol 2e-5")
+    # loghd_head at the LM example's training step: 8 x 128 rows, D = 128,
+    # n = 15, V = 2,048, float32, at the LM's scales
+    b, d, n, v = 1024, 128, 15, 2048
+    hl = torch.randn((b, d), generator=g, device=dev)
+    ml = torch.randn((n, d), generator=g, device=dev) / d ** 0.5
+    pl = torch.randn((v, n), generator=g, device=dev) * 0.05
+    got, want = loghd_head_logits(hl, ml, pl), loghd_head_logits_ref(hl, ml,
+                                                                      pl)
+    torch.cuda.synchronize()
+    log(f"loghd_head     ({b}, {d}, {n}, {v}) float32: max_abs_err "
+        f"{max_err(got, want):.3e}")
+    torch.testing.assert_close(got, want, **LH_TOL["float32"])
+    check(torch.equal(got.argmax(-1), want.argmax(-1)),
+          "loghd_head argmax differs from plain")
+    # flip_corrupt at the quickstart's sweep chunks: 1-bit "hv" leaves of
+    # LogHD and SparseHD, 5 p x 2 trials, bit for bit
+    qs = ex["quickstart"]
+    qmod = qs["module"]
+    fc_models = {name: qs["result"]["classifiers"][name].model
+                 for name in ("loghd", "sparsehd")}
+    for name, model in fc_models.items():
+        leaves, cols, n_leaves = fc_sweep_leaves(model, 1, "hv")
+        ps, rows = sweep_points(n_leaves, qmod.P_GRID, qmod.N_TRIALS)
+        seeds = [[row[i] for i in cols] for row in rows]
+        got = flip_corrupt_grid(leaves, ps, seeds)
+        want = flip_corrupt_grid_ref(leaves, ps, seeds)
+        torch.cuda.synchronize()
+        nd = fc_differing(torch, got, want)
+        log(f"flip_corrupt   quickstart {name} 1-bit hv, {len(ps)} points "
+            f"x {[list(c.shape) for c, _, _ in leaves]}: {nd} elements "
+            f"differ")
+        check(nd == 0, f"flip_corrupt quickstart {name}: {nd} elements "
+              f"differ from plain")
+    return dict(ops=ops, acts=acts, prof=prof, enc_in=enc_in,
+                updates=updates, lm_head=(hl, ml, pl), fc_models=fc_models,
+                fc_grid=(qmod.P_GRID, qmod.N_TRIALS))
+
+
+def ex_times(torch, rates: dict, k: dict) -> dict:
+    """Timing rows at the examples' new shapes, by kernel: bundle_sim at
+    (2,048, 8,192, 4,096) and (2,048, 8,192, 14) beside ``F.normalize(h) @
+    m.T``; profile_decode at (2,048, 14, 4,096); hdc_encode at (4,096,
+    256, 8,192) and (4,096, 617, 2,048); loghd_head at (1,024, 128, 15,
+    2,048) float32; bundle_update at the quickstart's refine (10, 64,
+    10,000) and retrain (26, 64, 3,846) steps; flip_corrupt at the
+    quickstart's two sweep chunks."""
+    rows = collections.defaultdict(list)
+    for key in ("bs_conv", "bs_log"):
+        hh, m = k["ops"][key]
+        rows["bundle_sim"].append(shape_row(
+            torch, rates, (hh.shape[0], hh.shape[1], m.shape[0]),
+            bs_case(torch, hh, m), ("kernel", "plain", "library")))
+    a, p = k["acts"], k["prof"]
+    rows["profile_decode"].append(shape_row(
+        torch, rates, (a.shape[0], a.shape[1], p.shape[0]),
+        pd_case(torch, a, p), ("kernel", "plain", "library")))
+    for (b, f, d), (x, w, bias, center) in k["enc_in"].items():
+        rows["hdc_encode"].append(shape_row(
+            torch, rates, (b, f, d), enc_case(torch, x, w, bias, center),
+            ("kernel", "plain", "library", "gemm")))
+    for name, (m, c, hh, lr) in k["updates"].items():
+        row = shape_row(torch, rates, (m.shape[0], hh.shape[0], hh.shape[1]),
+                        update_case(torch, m, c, hh, lr),
+                        ("kernel", "plain", "library"))
+        row["family"] = f"quickstart {name}"
+        rows["bundle_update"].append(row)
+    rows["loghd_head"].append(lm_head_row(torch, rates, *k["lm_head"],
+                                          tag="LM example "))
+    grid, trials = k["fc_grid"]
+    for name, model in k["fc_models"].items():
+        rows["flip_corrupt"].append(fc_row(
+            torch, rates, f"quickstart {name} hv", model, 1, "hv", grid,
+            trials))
+    for name, rs in rows.items():
+        for r in rs:
+            r["path"] = "examples"
+    return dict(rows)
+
+
+def phase_examples(torch, dev, rates: dict) -> dict:
+    """The four examples (``examples/*_torch.py``) as a user runs them, at
+    the JAX examples' sizes, each counted on its own; their checks, the
+    kernels at the new shapes against plain, and timing rows there."""
+    import os
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    ex = {}
+    for name, fn in (("quickstart", ex_quickstart), ("extreme", ex_extreme),
+                     ("train_100m", ex_train_100m), ("lm_loghd_head", ex_lm)):
+        ex[name] = fn(torch, dev)
+    k = ex_kernel_checks(torch, dev, ex)
+    ex["times"] = ex_times(torch, rates, k)
+    del k
+    for name in ("quickstart", "extreme"):
+        ex[name].pop("module", None)
+        r = ex[name]["result"]
+        for key in ("classifiers", "h_te"):
+            r.pop(key, None)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"examples phase: {phase_s:.1f} s (runs "
+        + ", ".join(f"{n} {ex[n]['wall']:.1f} s" for n in
+                    ("quickstart", "extreme", "train_100m", "lm_loghd_head"))
+        + f"; limit {EX_PHASE_LIMIT:.0f} s)")
+    check(phase_s <= EX_PHASE_LIMIT, f"the examples phase took {phase_s:.1f} s")
+    return ex
+
+
 def phase_fit_profile(torch, mm: dict) -> dict:
     """Where the LogHD fit's time goes: one Eq. 9 epoch (98 minibatch
     steps) on the host clock and on the device (torch.profiler), the
@@ -3609,7 +4084,8 @@ def bs_inputs(torch, dev, g, b: int, d: int, n: int):
 def bs_case(torch, h, m) -> dict:
     """bundle_sim's roles on one input: the kernel, its plain version, two
     library forms (``F.normalize(h) @ m.T`` and ``(h @ m.T) * rsqrt(||h||^2
-    + 1e-12)``); its bytes and flops."""
+    + 1e-12)``); its bytes, and its flops in the units of its product
+    (3xTF32 ``mma.sync``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.bundle_sim import (bundle_similarity,
                                                 bundle_similarity_ref)
@@ -3621,7 +4097,7 @@ def bs_case(torch, h, m) -> dict:
         library_rsqrt=lambda: (h @ m.T) * torch.rsqrt(
             (h * h).sum(-1, keepdim=True) + 1e-12),
         bytes=b * d * h.element_size() + n * d * 4 + b * n * 4,
-        ops=2 * b * d * n + 2 * b * d, op_type="float32")
+        ops=2 * b * d * n + 2 * b * d, op_type="tf32x3")
 
 
 def update_inputs(torch, dev, g, n: int, b: int, d: int):
@@ -3709,13 +4185,14 @@ def fc_sweep_leaves(model, bits: int, scope: str):
 
 
 def fc_row(torch, rates: dict, name: str, model, bits: int,
-           scope: str) -> dict:
-    """flip_corrupt at one sweep's chunk (6 p x 3 trials) of `model`: the
-    batched launch, its plain version and the chunk's G x L one-point
-    launches (the parent's sweep), as device time, CUDA-event ms a call and
-    span in a CUDA graph, beside the bound."""
+           scope: str, grid=P_GRID, n_trials: int = N_TRIALS) -> dict:
+    """flip_corrupt at one sweep's chunk (`grid` x `n_trials`, by default
+    6 p x 3 trials) of `model`: the batched launch, its plain version and
+    the chunk's G x L one-point launches (the parent's sweep), as device
+    time, CUDA-event ms a call and span in a CUDA graph, beside the
+    bound."""
     leaves, cols, n_leaves = fc_sweep_leaves(model, bits, scope)
-    ps, rows = sweep_points(n_leaves)
+    ps, rows = sweep_points(n_leaves, grid, n_trials)
     seeds = [[row[i] for i in cols] for row in rows]
     cs = fc_case(torch, leaves, ps, seeds)
     shape = [len(ps)] + [list(c.shape) for c, _, _ in leaves]
@@ -3908,7 +4385,11 @@ def main() -> int:
     lm_train = phase_lm_train(torch, dev)
     lm_archs = phase_lm_archs(torch, dev)
     lm_sharded = phase_lm_sharded(torch, dev)
+    examples = phase_examples(torch, dev, rates)
     times = phase_times(torch, main_run, mm, lm, rates)
+    # the kernels at the examples' shapes beside the earlier rows
+    for name, rows in examples["times"].items():
+        times[name].setdefault("shapes", []).extend(rows)
 
     # launches of every path's run: slice 1's LogHD path, the shared
     # encoder and each family's fit -> predict -> sweep of the
@@ -3942,6 +4423,10 @@ def main() -> int:
     # step
     by_path.update({f"lm_sharded_{name}": lm_sharded[name]["launches"]
                     for name in ("train", "serve", "granite", "restore")})
+    # the four examples, each run as a user runs it
+    ex_names = ("quickstart", "extreme", "train_100m", "lm_loghd_head")
+    by_path.update({f"example_{name}": examples[name]["launches"]
+                    for name in ex_names})
     # bundle_sim's launches of each path, in serving buckets (at most
     # MAX_BATCH rows) and in larger batches
     none = {"bucket": 0, "full": 0}
@@ -3953,6 +4438,8 @@ def main() -> int:
     bs_batches["extreme"] = none
     bs_batches["serve"] = serve["bs_batches"]
     bs_batches.update({p: none for p in by_path if p.startswith("lm_")})
+    bs_batches.update({f"example_{name}": examples[name]["bs_batches"]
+                       for name in ex_names})
     for p, c in bs_batches.items():
         check(c["bucket"] + c["full"] == by_path[p].get("bundle_sim", 0),
               f"{p}: bundle_sim batches {c} do not sum to its launches")

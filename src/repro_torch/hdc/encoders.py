@@ -39,6 +39,12 @@ class EncoderConfig:
     bandwidth: float = 2.0       # z = xW / bandwidth
     seed: int = 0
 
+    def memory_bits(self, bits: int = 32) -> int:
+        """Bits of the shared encoder: the projection, and the bias of
+        "cos".  The paper does not count it against a model's budget."""
+        n_bias = self.dim if self.kind == "cos" else 0
+        return (self.in_features * self.dim + n_bias) * bits
+
 
 def init_encoder(cfg: EncoderConfig, *, device,
                  generator: Optional[torch.Generator] = None,

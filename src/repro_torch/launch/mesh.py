@@ -30,8 +30,9 @@ Without a process group one rank holds every shard and no collective is
 called, so one card runs S = 8 and Dp = 2 with the same code path; with a
 group, the collectives are called even at world 1.  ``torchrun`` (or
 ``init_process_group`` with an explicit address, world size and rank)
-sets the group up; nothing here initialises one, and an LM mesh needs one
-(``init_device_mesh`` does, even at world 1).
+sets the group up, or ``join_group`` does for an entry point; nothing
+else here initialises one, and an LM mesh needs one (``init_device_mesh``
+does, even at world 1).
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import os
+import socket
 
 from typing import Optional
 
@@ -50,13 +53,35 @@ from repro_torch.kernels.common import resolve_device
 __all__ = ["Mesh", "make_mesh", "make_production_mesh", "ClassMesh",
            "make_class_mesh", "make_debug_mesh", "distributed",
            "world_size", "rank", "all_reduce_sum", "all_gather_stack",
-           "group_size", "collectives"]
+           "group_size", "collectives", "join_group"]
 
 AXES = ("data", "class")
 
 # Collective calls by kind ("all_reduce", "all_gather"), counted where one
 # is made; none without a process group.
 collectives: collections.Counter = collections.Counter()
+
+
+def join_group(device=None) -> bool:
+    """Initialise the default process group unless there is one: from
+    ``torchrun``'s environment, else a group of this process alone on a
+    free local port (NCCL on the card, gloo on the CPU).  True when this
+    call made it, for the caller to destroy."""
+    if dist.is_initialized():
+        return False
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+        return True
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    return True
 
 
 def distributed() -> bool:

@@ -23,33 +23,7 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
-import socket
 import sys
-
-
-def _join_group(device) -> bool:
-    """Initialise the default process group unless there is one: from
-    ``torchrun``'s environment, else a group of this process alone on a
-    free local port.  True when this call made it."""
-    import torch
-    import torch.distributed as dist
-    from repro_torch.kernels.common import resolve_device
-    if dist.is_initialized():
-        return False
-    dev = resolve_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
-        if dev.type == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-        dist.init_process_group(backend, init_method="env://")
-        return True
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=1, rank=0)
-    return True
 
 
 def main(argv=None) -> dict:
@@ -86,9 +60,9 @@ def main(argv=None) -> dict:
     made = False
     mesh = None
     if args.mesh != "none":
-        from repro_torch.launch.mesh import (make_debug_mesh,
+        from repro_torch.launch.mesh import (join_group, make_debug_mesh,
                                              make_production_mesh)
-        made = _join_group(args.device)
+        made = join_group(args.device)
         mesh = (make_debug_mesh(args.device) if args.mesh == "debug"
                 else make_production_mesh(device=args.device))
     try:

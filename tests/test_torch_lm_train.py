@@ -26,6 +26,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from _torch_threads import one_thread  # noqa: F401 (a fixture)
+
 from repro import configs as rconfigs
 from repro.models import model as R
 from repro_torch import configs as pconfigs
@@ -141,7 +143,7 @@ def test_loss_and_grads_match_reference(arch, head, emb):
 @pytest.mark.parametrize("arch,periods", [
     ("jamba-v0.1-52b", 4), ("xlstm-125m", 4), ("deepseek-v3-671b", 8),
     ("granite-moe-1b-a400m", 8)])
-def test_unported_mixers_raise(arch, periods, tmp_path):
+def test_unported_mixers_raise(arch, periods, tmp_path, one_thread):
     """The four configs that raised until their mixers and MoE ffn were
     ported now train (the test keeps its name): with int8 AdamW moments
     (block 32) each moment is int8 exactly where the reference's

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401 (a fixture)
+
 from repro import configs as rconfigs
 from repro.data.tokens import TokenPipeline as RPipe
 from repro.models import model as R
@@ -210,7 +212,7 @@ def test_opt_state_converts_to_the_reference_tree():
             assert torch.equal(leaf, other)
 
 
-def test_straggler_watchdog_aborts(tmp_path):
+def test_straggler_watchdog_aborts(tmp_path, one_thread):
     _, pc = _cfgs("qwen3-1.7b", vocab=128, d_model=32, n_heads=2,
                   n_kv_heads=2, head_dim=16, d_ff=64, n_periods=1)
     loop = PT.TrainLoopConfig(total_steps=40, ckpt_dir=str(tmp_path),
