@@ -155,9 +155,8 @@ family's minibatch, ``flip_corrupt`` at one point and at the sweeps'
 walls under ``sweeps``, ``profile_decode`` at ``PD_SHAPES`` and ``loghd_head``
 at B = 4 and 512 with bf16 and float32 profiles, at the training step's
 1,024 rows and at B = 4 of each slice 12 architecture under ``shapes``;
-``profile_decode``'s chained pair and the launch floor under ``chains``;
-``bundle_sim``'s launches by batch under ``launches_by_batch``), the number
-of rows whose kernel label
+``profile_decode``'s chained pair and the launch floor under
+``chains``), the number of rows whose kernel label
 differs from the plain route's beside each agreement share, the card's
 name and power limit as ``nvidia-smi`` reports them, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check
@@ -392,17 +391,6 @@ def profile_calls(torch, fn, calls: int = 10):
     top = sorted(((e.self_device_time_total / 1e3 / calls, e.count / calls,
                    e.key) for e in kern), reverse=True)
     return busy, count, top
-
-
-def bundle_sim_batches() -> dict:
-    """bundle_sim's launches since the last reset, split into serving-bucket
-    calls (at most MAX_BATCH rows) and larger ones."""
-    from repro_torch.kernels import common
-    out = {"bucket": 0, "full": 0}
-    for (name, rows), c in common.launch_rows.items():
-        if name == "bundle_sim":
-            out["bucket" if rows <= MAX_BATCH else "full"] += c
-    return out
 
 
 def max_err(a, b) -> float:
@@ -815,8 +803,7 @@ def phase_main_path(torch, dev) -> dict:
         sweep_s += time.perf_counter() - t0
         sweeps[bits] = (accs, common.launches["flip_corrupt"] - before)
     launches = dict(common.launches)
-    batches = bundle_sim_batches()
-    log(f"main path launches: {launches}; bundle_sim {batches}")
+    log(f"main path launches: {launches}")
 
     # checks, after the counts were read
     check(labels.shape == (len(x_te),), "predict shape")
@@ -863,8 +850,7 @@ def phase_main_path(torch, dev) -> dict:
     walls = {bits: check_sweep_forms(torch, model, h_te, y_te, bits, "all",
                                      accs)
              for bits, (accs, _) in sweeps.items()}
-    return {"launches": launches, "bs_batches": batches, "model": model,
-            "h_te": h_te,
+    return {"launches": launches, "model": model, "h_te": h_te,
             "x_te": x_te, "acc": acc, "fit_s": fit_s,
             "predict_s": predict_s, "sweep_s": sweep_s,
             "sweep_walls": walls}
@@ -1052,7 +1038,7 @@ def phase_matched_memory(torch, dev) -> dict:
         launches = dict(common.launches)
         out[name] = dict(clf=clf, labels=labels, accs=accs, fit_s=fit_s,
                          predict_s=predict_s, sweep_s=sweep_s,
-                         launches=launches, bs_batches=bundle_sim_batches(),
+                         launches=launches,
                          want_steps=want_steps, update_shapes=shapes)
         log(f"{name:<12} fit {fit_s:.3f} s, predict {predict_s:.4f} s, "
             f"1-bit sweep {sweep_s:.3f} s; launches {launches}; minibatch "
@@ -1387,9 +1373,7 @@ def phase_fault_zoo(torch, dev, mm: dict) -> dict:
     id_sweep = sweep(clf.model, hid_te, ZOO_BITS, P_GRID, "all", "iid")
     phase_s = time.perf_counter() - t_phase
     launches = dict(common.launches)
-    batches = bundle_sim_batches()
-    log(f"fault zoo path: {phase_s:.3f} s; launches {launches}; "
-        f"bundle_sim {batches}")
+    log(f"fault zoo path: {phase_s:.3f} s; launches {launches}")
 
     # checks, after the counts were read
     want_flips = 2 + len(models) + 1
@@ -1476,8 +1460,7 @@ def phase_fault_zoo(torch, dev, mm: dict) -> dict:
     check(id_acc > 0.5, f"ID-level LogHD accuracy {id_acc} is below 0.5")
     check(id_sweep["flips"] == 1, f"ID-level sweep launched flip_corrupt "
           f"{id_sweep['flips']} times, not once")
-    return {"launches": launches, "bs_batches": batches,
-            "phase_s": phase_s, "curves": {
+    return {"launches": launches, "phase_s": phase_s, "curves": {
                 f"{fname}_{fam}": r["accs"].mean(1).tolist()
                 for fname, fams in per_model.items()
                 for fam, r in fams.items()},
@@ -1997,11 +1980,10 @@ def phase_serving(torch, dev, main: dict, mm: dict) -> dict:
     svc.shutdown(drain=True, timeout=120.0)
     torch.cuda.synchronize()
     launches = dict(common.launches)
-    batches = bundle_sim_batches()
     cycles = svc.queue.cycles - cycles0
     stats = svc.stats()
-    log(f"serve path launches: {launches}; bundle_sim {batches}; {cycles} "
-        f"cycles, {enc_cycles} of them encoded-input")
+    log(f"serve path launches: {launches}; {cycles} cycles, {enc_cycles} of "
+        f"them encoded-input")
 
     # the device's share of one closed loop (profiled apart, not counted)
     with profile(activities=[ProfilerActivity.CPU,
@@ -2071,7 +2053,7 @@ def phase_serving(torch, dev, main: dict, mm: dict) -> dict:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
             f"{e.key[:90]}")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    return dict(launches=launches, bs_batches=batches, closed=closed,
+    return dict(launches=launches, closed=closed,
                 opened=opened, cycles=cycles, raw_cycles=raw_cycles)
 
 
@@ -3396,7 +3378,7 @@ def load_example(name: str):
 def run_example(torch, mod, argv: list) -> tuple:
     """``mod.main(argv)`` as a user runs it, counted: every launch count is
     set to 0 just before and read just after.  Returns (result, launches,
-    bundle_sim's batches, wall s)."""
+    wall s)."""
     from repro_torch.kernels import common
     torch.cuda.synchronize()
     common.reset_launches()
@@ -3405,7 +3387,7 @@ def run_example(torch, mod, argv: list) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(common.launches)
-    return out, launches, bundle_sim_batches(), wall
+    return out, launches, wall
 
 
 def counts_equal(acc, correct, n: int) -> bool:
@@ -3426,7 +3408,7 @@ def ex_quickstart(torch, dev) -> dict:
     from repro_torch.api import dispatch
     from repro_torch.core.evaluate import trial_seeds
     qs = load_example("quickstart_torch")
-    r, launches, batches, wall = run_example(torch, qs, [])
+    r, launches, wall = run_example(torch, qs, [])
     log(f"example quickstart: {wall:.2f} s, launches {launches}")
     for k in ("hdc_encode", "bundle_update", "bundle_sim", "profile_decode",
               "flip_corrupt"):
@@ -3462,7 +3444,7 @@ def ex_quickstart(torch, dev) -> dict:
         f"{r['acc_conventional']:.4f}, LogHD {r['acc_loghd']:.4f} (n = "
         f"{r['n_bundles']}), SparseHD {r['acc_sparsehd']:.4f}; kernel labels "
         f"differing from plain {diff}; sweeps equal to the per-point loop")
-    return dict(result=r, launches=launches, bs_batches=batches, wall=wall,
+    return dict(result=r, launches=launches, wall=wall,
                 differing=diff, module=qs)
 
 
@@ -3473,7 +3455,7 @@ def ex_extreme(torch, dev) -> dict:
     from repro_torch.api import dispatch
     xc = load_example("extreme_classification_torch")
     torch.cuda.reset_peak_memory_stats()
-    r, launches, batches, wall = run_example(torch, xc, [])
+    r, launches, wall = run_example(torch, xc, [])
     peak = torch.cuda.max_memory_allocated()
     log(f"example extreme: {wall:.2f} s (encode {r['encode_s']:.3f} s), "
         f"peak {peak} B, launches {launches}")
@@ -3492,7 +3474,7 @@ def ex_extreme(torch, dev) -> dict:
         f"LogHD n = {r['n_bundles']}, {r['loghd_bytes']} B, acc "
         f"{r['acc_loghd']:.4f}, {r['qps_loghd']:.1f} queries/s; rows "
         f"differing from plain {diff}")
-    return dict(result=r, launches=launches, bs_batches=batches, wall=wall,
+    return dict(result=r, launches=launches, wall=wall,
                 differing=diff, peak_bytes=peak)
 
 
@@ -3503,7 +3485,7 @@ def ex_train_100m(torch, dev) -> dict:
     import math
     import torch.distributed as dist
     t100 = load_example("train_100m_torch")
-    r, launches, batches, wall = run_example(torch, t100, [])
+    r, launches, wall = run_example(torch, t100, [])
     check(not dist.is_initialized(), "train_100m left its group behind")
     check(launches.get("hdc_encode", 0) == 13,
           f"train_100m: hdc_encode launched {launches.get('hdc_encode')} "
@@ -3517,7 +3499,7 @@ def ex_train_100m(torch, dev) -> dict:
         f"{r['final_acc']:.4f}, log {r['log']}, launches {launches}")
     shard = shard_fit_profile(torch, dev, r["protos"])
     return dict(result={k: v for k, v in r.items() if k != "protos"},
-                launches=launches, bs_batches=batches, wall=wall,
+                launches=launches, wall=wall,
                 shard_fit=shard)
 
 
@@ -3572,7 +3554,7 @@ def ex_lm(torch, dev) -> dict:
     from repro_torch.kernels import common
     from repro_torch.kernels.loghd_head import loghd_head_logits_ref
     lm = load_example("lm_loghd_head_torch")
-    r, launches, batches, wall = run_example(torch, lm, [])
+    r, launches, wall = run_example(torch, lm, [])
     check(launches.get("loghd_head") == EX_LM_STEPS and set(launches) == {
         "loghd_head"}, f"LM example launches {launches}: not one loghd_head "
         f"launch a loghd step")
@@ -3599,7 +3581,7 @@ def ex_lm(torch, dev) -> dict:
         f" -> {np.mean(r['dense']['losses'][-5:]):.4f}; loghd {kern[0]:.4f} "
         f"-> {np.mean(kern[-5:]):.4f} (last five {kern[-5:]}); plain head "
         f"{plain[0]:.4f} -> {np.mean(plain[-5:]):.4f}, largest gap {gap:.3e}")
-    return dict(result=r, launches=launches, bs_batches=batches, wall=wall,
+    return dict(result=r, launches=launches, wall=wall,
                 plain_losses=plain, plain_gap=gap)
 
 
@@ -4427,22 +4409,6 @@ def main() -> int:
     ex_names = ("quickstart", "extreme", "train_100m", "lm_loghd_head")
     by_path.update({f"example_{name}": examples[name]["launches"]
                     for name in ex_names})
-    # bundle_sim's launches of each path, in serving buckets (at most
-    # MAX_BATCH rows) and in larger batches
-    none = {"bucket": 0, "full": 0}
-    bs_batches = {"loghd_refine_off": main_run["bs_batches"],
-                  "matched_memory_encoder": none}
-    bs_batches.update({f"matched_memory_{name}": r["bs_batches"]
-                       for name, r in mm["families"].items()})
-    bs_batches["fault_zoo"] = zoo["bs_batches"]
-    bs_batches["extreme"] = none
-    bs_batches["serve"] = serve["bs_batches"]
-    bs_batches.update({p: none for p in by_path if p.startswith("lm_")})
-    bs_batches.update({f"example_{name}": examples[name]["bs_batches"]
-                       for name in ex_names})
-    for p, c in bs_batches.items():
-        check(c["bucket"] + c["full"] == by_path[p].get("bundle_sim", 0),
-              f"{p}: bundle_sim batches {c} do not sum to its launches")
     # the sweeps' walls (one chunk, and the per-point loop, each twice),
     # device work and idle share
     sweeps = {f"loghd_refine_off_{b}bit": w
@@ -4466,12 +4432,6 @@ def main() -> int:
             "device_ms": t["device_ms"],
             "plain_device_ms": t["plain_device_ms"],
             "library_device_ms": t["library_device_ms"],
-            **({"launches_by_batch": {
-                f"bucket (<= {MAX_BATCH} rows)": {
-                    p: c["bucket"] for p, c in bs_batches.items()},
-                f"full (> {MAX_BATCH} rows)": {
-                    p: c["full"] for p, c in bs_batches.items()}}}
-               if name == "bundle_sim" else {}),
             **({"sweeps": sweeps} if name == "flip_corrupt" else {}),
             **({"shapes": t["shapes"]} if "shapes" in t else {}),
             **({"chains": t["chains"]} if "chains" in t else {})})

@@ -1,0 +1,14 @@
+"""moe_route_ms.train: device milliseconds a training step put down to
+the program's span ``repro_torch.moe.route`` (``models/moe.MoE.route``:
+the router product, softmax, top-k, the Switch loss and the capacity
+slots), with their backward and remat's recomputation, by
+``perfbench/spans.py``."""
+
+from pathlib import Path
+
+from perfbench import spans
+
+
+def read(ctx):
+    return spans.device_ms(ctx, Path(__file__).resolve().parents[2],
+                           "repro_torch.moe.route")

@@ -23,15 +23,10 @@ import torch
 # Launches per kernel name, counted by each wrapper where it launches its
 # kernel and nowhere else; the plain versions never count.
 launches: collections.Counter = collections.Counter()
-# Launches per (kernel name, rows of the call), counted beside `launches`
-# by the wrappers whose callers batch rows (bundle_sim: serving buckets of
-# at most 64 rows against full predict batches).
-launch_rows: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     launches.clear()
-    launch_rows.clear()
 
 
 # Programmatic dependent launch (PDL, Hopper): loghd_head's score stage, and

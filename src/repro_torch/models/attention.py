@@ -38,6 +38,7 @@ from repro_torch.models import sharding as shd
 from repro_torch.models.layers import (norm_scale, normal_, rms_norm,
                                        rope_table, rotate)
 from repro_torch.models.sharding import fsdp, hint
+from repro_torch.spans import span
 
 NEG_INF = -2.0 ** 30
 ATTN_CHUNK = 512  # q-chunk size for memory-efficient attention
@@ -261,11 +262,12 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, rope) -> torch.Tensor:
         """Prefill / training attention over x (B, S, D): full causal, or
         banded for a local layer."""
-        if self.cfg.window is not None and x.shape[1] > self.cfg.window:
-            return self._local(x, rope)
-        q, k, v = self.qkv(x, rope)
-        out = _sdpa(q, k, v, 1.0 / math.sqrt(self.cfg.head_dim))
-        return out @ fsdp(self.wo)
+        with span("repro_torch.attention"):
+            if self.cfg.window is not None and x.shape[1] > self.cfg.window:
+                return self._local(x, rope)
+            q, k, v = self.qkv(x, rope)
+            out = _sdpa(q, k, v, 1.0 / math.sqrt(self.cfg.head_dim))
+            return out @ fsdp(self.wo)
 
     def _local(self, x: torch.Tensor, rope) -> torch.Tensor:
         """Sliding-window attention in the chunked two-block banded form:

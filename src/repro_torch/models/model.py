@@ -74,6 +74,7 @@ from repro_torch.models.mla import MLA, MLAConfig, init_mla_cache
 from repro_torch.models.moe import MoE, MoEConfig, moe_block
 from repro_torch.models.xlstm import (MLSTM, SLSTM, XLSTMConfig,
                                       init_mlstm_state, init_slstm_state)
+from repro_torch.spans import span
 
 
 def _mixer_cfg(cfg: ModelConfig, blk: BlockSpec):
@@ -609,7 +610,8 @@ def _loss(model: DecoderLM, cfg: ModelConfig, tokens, targets, embeddings):
     chunk = cfg.loss_chunk
     if chunk and s > chunk and s % chunk == 0:
         def chunk_nll(xi, ti):
-            return _xent_from_logits(model.head(xi), ti)
+            with span("repro_torch.head"):
+                return _xent_from_logits(model.head(xi), ti)
 
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for c in range(0, s, chunk):
@@ -621,7 +623,9 @@ def _loss(model: DecoderLM, cfg: ModelConfig, tokens, targets, embeddings):
                 nll = chunk_nll(xi, ti)
             total = total + nll
         return total / (b * s) + aux
-    return _xent_from_logits(model.head(x), targets) / (b * s) + aux
+    with span("repro_torch.head"):
+        nll = _xent_from_logits(model.head(x), targets)
+    return nll / (b * s) + aux
 
 
 def _init_block_state(cfg: ModelConfig, blk: BlockSpec, batch: int,

@@ -45,6 +45,7 @@ from torch import nn
 
 from repro_torch.models import sharding as shd
 from repro_torch.models.layers import normal_
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,23 +125,25 @@ class MoE(nn.Module):
     def route(self, x: torch.Tensor, router=None) -> Routing:
         """Routing of x (T, D) (``moe.py:83-103``), by `router` (default
         the module's)."""
-        cfg = self.cfg
-        t, e = x.shape[0], cfg.n_experts
-        router = self.router if router is None else router
-        logits = (x @ router.to(x.dtype)).float()
-        probs = torch.softmax(logits, dim=-1)
-        gates, experts = top_k(probs, cfg.top_k)
-        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-        me = probs.mean(0)
-        ce = F.one_hot(experts, e).float().sum(1).mean(0)
-        aux = cfg.router_aux_weight * e * (me * ce).sum()
-        cap = cfg.capacity(t)
-        flat = experts.reshape(-1)                             # (T*K,)
-        onehot = F.one_hot(flat, e)                            # (T*K, E)
-        slot = onehot.cumsum(0).gather(1, flat[:, None])[:, 0] - 1
-        keep = slot < cap
-        return Routing(experts, gates, torch.where(keep, slot, cap - 1),
-                       keep, cap, aux)
+        with span("repro_torch.moe.route"):
+            cfg = self.cfg
+            t, e = x.shape[0], cfg.n_experts
+            router = self.router if router is None else router
+            logits = (x @ router.to(x.dtype)).float()
+            probs = torch.softmax(logits, dim=-1)
+            gates, experts = top_k(probs, cfg.top_k)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+            me = probs.mean(0)
+            ce = F.one_hot(experts, e).float().sum(1).mean(0)
+            aux = cfg.router_aux_weight * e * (me * ce).sum()
+            cap = cfg.capacity(t)
+            flat = experts.reshape(-1)                         # (T*K,)
+            onehot = F.one_hot(flat, e)                        # (T*K, E)
+            slot = onehot.cumsum(0).gather(1, flat[:, None])[:, 0] - 1
+            keep = slot < cap
+            return Routing(experts, gates, torch.where(keep, slot, cap - 1),
+                           keep, cap, aux)
 
     def experts_ffn(self, buf: torch.Tensor, wi=None, wg=None,
                     wo=None) -> torch.Tensor:
@@ -161,21 +164,23 @@ class MoE(nn.Module):
         cfg = self.cfg
         d = xt.shape[1]
         r = self.route(xt, router)
-        flat = r.experts.reshape(-1)
-        keep = r.keep[:, None]
-        x_rep = torch.repeat_interleave(xt, cfg.top_k, dim=0)  # (T*K, D)
-        # a dropped choice adds zeros to its expert's last slot: the
-        # reference's scatter-add, a plain copy for every kept token
-        buf = xt.new_zeros((cfg.n_experts, r.cap, d)).index_put(
-            (flat, r.slots), torch.where(keep, x_rep, 0), accumulate=True)
-        if exchange is not None:
-            buf = exchange(buf, back=False)
-        out = self.experts_ffn(buf, *(experts or ()))
-        if exchange is not None:
-            out = exchange(out, back=True)
-        y_tok = torch.where(keep, out[flat, r.slots], 0)
-        y = (y_tok.reshape(-1, cfg.top_k, d)
-             * r.gates[..., None].to(y_tok.dtype)).sum(1)
+        with span("repro_torch.moe.experts"):
+            flat = r.experts.reshape(-1)
+            keep = r.keep[:, None]
+            x_rep = torch.repeat_interleave(xt, cfg.top_k, dim=0)  # (T*K, D)
+            # a dropped choice adds zeros to its expert's last slot: the
+            # reference's scatter-add, a plain copy for every kept token
+            buf = xt.new_zeros((cfg.n_experts, r.cap, d)).index_put(
+                (flat, r.slots), torch.where(keep, x_rep, 0),
+                accumulate=True)
+            if exchange is not None:
+                buf = exchange(buf, back=False)
+            out = self.experts_ffn(buf, *(experts or ()))
+            if exchange is not None:
+                out = exchange(out, back=True)
+            y_tok = torch.where(keep, out[flat, r.slots], 0)
+            y = (y_tok.reshape(-1, cfg.top_k, d)
+                 * r.gates[..., None].to(y_tok.dtype)).sum(1)
         return y, r.aux
 
     def shared(self, x):

@@ -50,6 +50,7 @@ from repro_torch.models.convert import (load_train_state, stacked_layers,
 from repro_torch.models.model import DecoderLM, init_params, loss_fn
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.spans import span
 
 log = logging.getLogger("repro_torch.train")
 
@@ -88,8 +89,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     one."""
     def grads_of(params, tokens, targets) -> tuple:
         leaves = list(params.parameters())
-        loss = loss_fn(params, cfg, tokens, targets, mesh)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        with span("repro_torch.train.forward"):
+            loss = loss_fn(params, cfg, tokens, targets, mesh)
+        with span("repro_torch.train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), grads
 
     def train_step(params: DecoderLM, opt_state: dict, batch: dict, step):
         dev = params.device
@@ -116,8 +120,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         lr = cosine_schedule(int(step), peak_lr=loop.peak_lr,
                              warmup_steps=loop.warmup_steps,
                              total_steps=loop.total_steps)
-        adamw_update(opt_state, dict(params.named_parameters()),
-                     dict(zip(names, grads)), opt_cfg, lr=lr)
+        with span("repro_torch.train.optimizer"):
+            adamw_update(opt_state, dict(params.named_parameters()),
+                         dict(zip(names, grads)), opt_cfg, lr=lr)
         return params, opt_state, loss
     return train_step
 
