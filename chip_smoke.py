@@ -116,7 +116,8 @@ launch equal to an unchained one; ``loghd_head`` at B = 1, 4, 64 and 512
 of qwen3-1.7b's head and at n = 64 against a vocabulary no tile divides,
 and at B = 1, 4 and 64 of each slice 12 architecture's head, every dtype
 pair, with the float32 argmax of plain, two launches equal and
-bf16 profiles equal to their float32 cast), each path's launch counts
+bf16 profiles equal to their float32 cast; ``moe_slots`` exactly, at
+``MS_SHAPES``), each path's launch counts
 (``bundle_sim``'s split into
 serving-bucket and full-batch calls), that fits repeat bit for bit (the
 LogHD repeat with TF32 turned on globally, watching that every matmul of
@@ -154,7 +155,9 @@ family's minibatch, ``flip_corrupt`` at one point and at the sweeps'
 18-point chunks, beside the chunk's one-point launches, with the sweeps'
 walls under ``sweeps``, ``profile_decode`` at ``PD_SHAPES`` and ``loghd_head``
 at B = 4 and 512 with bf16 and float32 profiles, at the training step's
-1,024 rows and at B = 4 of each slice 12 architecture under ``shapes``;
+1,024 rows and at B = 4 of each slice 12 architecture under ``shapes``,
+``moe_slots`` at granite's training step, deepseek's 256 experts and a
+decode step beside the one-hot cumsum;
 ``profile_decode``'s chained pair and the launch floor under
 ``chains``), the number of rows whose kernel label
 differs from the plain route's beside each agreement share, the card's
@@ -196,7 +199,16 @@ KERNELS = {
                    "src/repro/kernels/hdc_encode/hdc_encode.py:70"),
     "loghd_head": ("src/repro_torch/kernels/csrc/loghd_head.cu",
                    "src/repro/kernels/loghd_head/loghd_head.py:78"),
+    "moe_slots": ("src/repro_torch/kernels/csrc/moe_slots.cu",
+                  "none: `jnp.cumsum`, `src/repro/models/moe.py:101`"),
 }
+# moe_slots' checked shapes (tokens T, experts E, top-k, capacity factor):
+# granite-moe's training step (8 x 4,096 tokens, top-8 of 32), deepseek-v3's
+# 256 experts and a decode step of 4 tokens (these three timed), granite's
+# step at E / k, jamba's 16 experts on a ragged call, and the last shape
+# with every choice to one expert under a capacity of one
+MS_SHAPES = [(32768, 32, 8, 1.25), (4096, 256, 8, 1.25), (4, 32, 8, 1.25),
+             (32768, 32, 8, 4.0), (1000, 16, 2, 1.25), (4, 256, 8, 32.0)]
 # profile_decode's checked and timed shapes (B, n, C): a lone request, a
 # serving bucket and the predict batch against LogHD's n = 10 bundles and
 # isolet's 26 classes, hybrid's n = 20, and the extreme-classification
@@ -393,6 +405,13 @@ def profile_calls(torch, fn, calls: int = 10):
     return busy, count, top
 
 
+def moe_layers(model) -> int:
+    """The LM's MoE ffn blocks: each routes once a forward, one
+    ``moe_slots`` launch (twice a training step under remat)."""
+    from repro_torch.models.moe import MoE
+    return sum(isinstance(m, MoE) for m in model.modules())
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
@@ -482,6 +501,82 @@ def phase_kernels(torch, dev) -> dict:
             errs["bundle_update"] = err
     errs["hdc_encode"] = check_hdc_encode(torch, dev, g)
     return errs
+
+
+def ms_case(torch, flat, e: int, cap: int) -> dict:
+    """moe_slots' roles on one input: the kernel, its plain version (the
+    one-hot cumsum route), the library yardstick ``F.one_hot(...)
+    .cumsum(0)`` alone; its bytes (the ids read, slots and keep written)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_slots import moe_slots, moe_slots_ref
+    n = flat.shape[0]
+    return dict(kernel=lambda: moe_slots(flat, e, cap),
+                plain=lambda: moe_slots_ref(flat, e, cap),
+                library=lambda: F.one_hot(flat, e).cumsum(0),
+                bytes=17 * n, ops=0, op_type="int32")
+
+
+def phase_moe_slots(torch, dev, rates: dict) -> tuple:
+    """moe_slots against its plain version, exactly, at MS_SHAPES (top-k
+    choices drawn on the card), one launch a call, two calls equal; then
+    CUDA-event, profiler and graph-span times of the first three shapes
+    (the plain and library versions fewer times: about 100 ms a call at
+    granite's shape).  Returns (the largest slot difference, the times)."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.moe_slots import moe_slots, moe_slots_ref
+    from repro_torch.models.moe import MoEConfig
+    g = torch.Generator(device=dev).manual_seed(11)
+    err, rows = 0.0, []
+    for i, (t, e, k, cf) in enumerate(MS_SHAPES):
+        # scores skewed towards the higher experts, so that some overflow
+        skew = torch.linspace(0.0, 0.5, e, device=dev)
+        flat = (torch.rand((t, e), generator=g, device=dev) + skew).argsort(
+            dim=1, descending=True)[:, :k].reshape(-1).contiguous()
+        if i == len(MS_SHAPES) - 1:
+            flat = torch.full_like(flat, 3)
+            cap = 1
+        else:
+            cap = MoEConfig(d_model=8, d_ff=8, n_experts=e, top_k=k,
+                            capacity_factor=cf).capacity(t)
+        common.reset_launches()
+        got = moe_slots(flat, e, cap)
+        again = moe_slots(flat, e, cap)
+        check(common.launches["moe_slots"] == 2,
+              f"moe_slots launches {common.launches['moe_slots']} for 2 calls")
+        want = moe_slots_ref(flat, e, cap)
+        torch.cuda.synchronize()
+        err = max(err, max_err(got[0], want[0]))
+        log(f"moe_slots      ({t * k}, {e}) cap {cap}: slots differ "
+            f"{int((got[0] != want[0]).sum())}, keep differ "
+            f"{int((got[1] != want[1]).sum())}, kept "
+            f"{int(got[1].sum())} of {t * k}")
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"moe_slots differs from plain at {(t * k, e, cap)}")
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              "moe_slots is not repeatable")
+        if i < 3:
+            cs = ms_case(torch, flat, e, cap)
+            b_ms, b_by = bound_ms(rates, cs["bytes"], cs["ops"],
+                                  cs["op_type"])
+            slow = t * k > 100_000
+            row = {"shape": [t * k, e, cap], "bound_ms": b_ms,
+                   "bound_by": b_by, "ms": time_ms(torch, cs["kernel"]),
+                   "span_ms": graph_span_ms(torch, cs["kernel"]),
+                   "device_ms": device_ms(torch, cs["kernel"])}
+            for role in ("plain", "library"):
+                fn = cs[role]
+                row[f"{role}_ms"] = (time_ms(torch, fn, reps=3, inner=2)
+                                     if slow else time_ms(torch, fn))
+                row[f"{role}_device_ms"] = (
+                    device_ms(torch, fn, calls=4, tries=3) if slow
+                    else device_ms(torch, fn))
+            log(f"time moe_slots {row}")
+            rows.append(row)
+    times = {key: rows[0][key] for key in (
+        "ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms",
+        "library_device_ms", "bound_ms", "bound_by")}
+    times["shapes"] = rows
+    return err, times
 
 
 def sweep_points(n_leaves: int, ps=P_GRID, n_trials: int = N_TRIALS):
@@ -2279,7 +2374,11 @@ def phase_lm(torch, dev, cfg32=None, cfg16=None, *, heads=("loghd", "dense"),
               f"loghd_head launched {launches.get('loghd_head', 0)} times "
               f"over {n_steps} decode steps with the {head} head, not "
               f"{want_lh}")
-        check(sum(launches.values()) == want_lh,
+        want_ms = n_steps * moe_layers(model)
+        check(launches.get("moe_slots", 0) == want_ms,
+              f"moe_slots launched {launches.get('moe_slots', 0)} times "
+              f"over {n_steps} decode steps, not {want_ms}")
+        check(sum(launches.values()) == want_lh + want_ms,
               f"other kernels launched on the LM path: {launches}")
 
         # one decode step at the serving batch, profiled
@@ -2876,7 +2975,13 @@ def lm_arch_train(torch, dev, cfg) -> dict:
     want = 1 if cfg.head == "loghd" else 0
     check(r["per_step"] == [want, want], f"{cfg.name}: loghd_head launches "
           f"a step {r['per_step']}, not {want} each")
-    check(sum(r["launches"].values()) == 2 * want,
+    # two steps, each routing in the forward and, under remat, again in
+    # the backward's recomputation
+    want_ms = 2 * moe_layers(r["model"]) * (
+        1 if cfg.remat_policy == "none" else 2)
+    check(r["launches"].get("moe_slots", 0) == want_ms,
+          f"{cfg.name}: moe_slots launches {r['launches']}, not {want_ms}")
+    check(sum(r["launches"].values()) == 2 * want + want_ms,
           f"{cfg.name}: kernels launched on the training path: "
           f"{r['launches']}")
     out = dict(losses=r["losses"], launches=r["launches"], aux=aux,
@@ -3199,8 +3304,10 @@ def ls_granite(torch, dev, mesh) -> dict:
         f"agrees on {agree:.4f}; launches {launches}")
     check(bool(torch.isfinite(got).all()), "granite EP logits not finite")
     torch.testing.assert_close(got, want, **tol)
-    check(launches == {"loghd_head": LS_EP_STEPS}, f"loghd_head launches "
-          f"over {LS_EP_STEPS} expert-parallel decode steps: {launches}")
+    check(launches == {"loghd_head": LS_EP_STEPS,
+                       "moe_slots": LS_EP_STEPS * moe_layers(model)},
+          f"loghd_head and moe_slots launches over {LS_EP_STEPS} "
+          f"expert-parallel decode steps: {launches}")
     del model
     torch.cuda.empty_cache()
     return dict(launches=launches, err=err, agree=agree)
@@ -4353,6 +4460,7 @@ def main() -> int:
     rates = card_rates(kind)
 
     errs = phase_kernels(torch, dev)
+    errs["moe_slots"], moe_times = phase_moe_slots(torch, dev, rates)
     errs["loghd_head"] = phase_lm_kernel(torch, dev)
     arch_head_errs = phase_lm_arch_kernels(torch, dev)
     main_run = phase_main_path(torch, dev)
@@ -4369,6 +4477,7 @@ def main() -> int:
     lm_sharded = phase_lm_sharded(torch, dev)
     examples = phase_examples(torch, dev, rates)
     times = phase_times(torch, main_run, mm, lm, rates)
+    times["moe_slots"] = moe_times
     # the kernels at the examples' shapes beside the earlier rows
     for name, rows in examples["times"].items():
         times[name].setdefault("shapes", []).extend(rows)

@@ -10,7 +10,9 @@ the k gates are renormalised by max(sum, 1e-9).  The Switch
 load-balancing loss is ``router_aux_weight * E * sum_e mean_prob_e *
 mean_count_e``.  Each expert takes at most ``cap = ceil(capacity_factor *
 T * top_k / E)`` tokens of the call's T, in the order of the token-major
-flattened (T * k) choices; a token past its expert's capacity falls
+flattened (T * k) choices (each choice's slot counts the earlier choices
+of its expert: the ``moe_slots`` kernel on the card, the reference's
+one-hot cumsum on the CPU); a token past its expert's capacity falls
 through the residual.  The kept tokens are scattered into (E, cap, D)
 buffers, every expert runs its SwiGLU on its whole buffer (dense batched
 products, as the reference computes them outside any kernel), and each
@@ -43,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.moe_slots import moe_slots
 from repro_torch.models import sharding as shd
 from repro_torch.models.layers import normal_
 from repro_torch.spans import span
@@ -138,12 +141,8 @@ class MoE(nn.Module):
             ce = F.one_hot(experts, e).float().sum(1).mean(0)
             aux = cfg.router_aux_weight * e * (me * ce).sum()
             cap = cfg.capacity(t)
-            flat = experts.reshape(-1)                         # (T*K,)
-            onehot = F.one_hot(flat, e)                        # (T*K, E)
-            slot = onehot.cumsum(0).gather(1, flat[:, None])[:, 0] - 1
-            keep = slot < cap
-            return Routing(experts, gates, torch.where(keep, slot, cap - 1),
-                           keep, cap, aux)
+            slots, keep = moe_slots(experts.reshape(-1), e, cap)
+            return Routing(experts, gates, slots, keep, cap, aux)
 
     def experts_ffn(self, buf: torch.Tensor, wi=None, wg=None,
                     wo=None) -> torch.Tensor:

@@ -69,3 +69,10 @@ except ImportError:
     _hyp.strategies = _st
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    # tests that run only on a CUDA card; each decides inside a fixture
+    # whether there is one, and skips without it
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (sm_90a); skips without one")
