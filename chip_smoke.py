@@ -114,7 +114,8 @@ among them, with rows bitwise equal at B = 1, 64 and 1,559, two launches
 equal, and a launch chained after ``bundle_sim`` by programmatic dependent
 launch equal to an unchained one; ``loghd_head`` at B = 1, 4, 64 and 512
 of qwen3-1.7b's head and at n = 64 against a vocabulary no tile divides,
-and at B = 1, 4 and 64 of each slice 12 architecture's head, every dtype
+and at B = 1, 4 and 64 of each slice 12 architecture's head (deepseek's
+also at 2,048 rows, a training step's head call), every dtype
 pair, with the float32 argmax of plain, two launches equal and
 bf16 profiles equal to their float32 cast; ``moe_slots`` exactly, at
 ``MS_SHAPES``), each path's launch counts
@@ -205,10 +206,12 @@ KERNELS = {
 # moe_slots' checked shapes (tokens T, experts E, top-k, capacity factor):
 # granite-moe's training step (8 x 4,096 tokens, top-8 of 32), deepseek-v3's
 # 256 experts and a decode step of 4 tokens (these three timed), granite's
-# step at E / k, jamba's 16 experts on a ragged call, and the last shape
-# with every choice to one expert under a capacity of one
+# step at E / k, jamba's 16 experts on a ragged call, deepseek-v3-ep32's
+# training step (4 x 4,096 tokens, top-8 of 256, cap 640), and the last
+# shape with every choice to one expert under a capacity of one
 MS_SHAPES = [(32768, 32, 8, 1.25), (4096, 256, 8, 1.25), (4, 32, 8, 1.25),
-             (32768, 32, 8, 4.0), (1000, 16, 2, 1.25), (4, 256, 8, 32.0)]
+             (32768, 32, 8, 4.0), (1000, 16, 2, 1.25), (16384, 256, 8, 1.25),
+             (4, 256, 8, 32.0)]
 # profile_decode's checked and timed shapes (B, n, C): a lone request, a
 # serving bucket and the predict batch against LogHD's n = 10 bundles and
 # isolet's 26 classes, hybrid's n = 20, and the extreme-classification
@@ -2929,6 +2932,9 @@ LM_ARCHS = (
      ("loghd",)),
 )
 LM_ARCH_KERNEL_ROWS = (1, 4, 64)
+# the rows of a training step's head call (batch x loss chunk) where a
+# benchmark cell trains at that head shape: deepseek-v3-ep32's 4 x 512
+LM_ARCH_TRAIN_ROWS = {"deepseek-v3-671b": (2048,)}
 
 
 def lm_arch_head_shapes(b: int) -> list:
@@ -2941,15 +2947,15 @@ def lm_arch_head_shapes(b: int) -> list:
 
 def phase_lm_arch_kernels(torch, dev) -> dict:
     """``phase_lm_kernel`` at each of ``LM_ARCHS``' head shapes, B = 1, 4
-    and 64 (widths 768 to 7,168, n = 18 and 19, where the A stage never
-    ran before): both dtype pairs of h / M and of P, the float32 argmax of
-    plain, two launches equal, rows independent of B.  Returns each
-    arch's max abs error at B = 4 in bf16."""
+    and 64, and ``LM_ARCH_TRAIN_ROWS`` (widths 768 to 7,168, n = 18 and
+    19, where the A stage never ran before): both dtype pairs of h / M and
+    of P, the float32 argmax of plain, two launches equal, rows independent
+    of B.  Returns each arch's max abs error at B = 4 in bf16."""
     errs = {}
     for arch, (_, d, n, v) in lm_arch_head_shapes(1):
+        rows = LM_ARCH_KERNEL_ROWS + LM_ARCH_TRAIN_ROWS.get(arch, ())
         errs[arch] = phase_lm_kernel(
-            torch, dev, shapes=[(b, d, n, v) for b in LM_ARCH_KERNEL_ROWS],
-            ragged=None)
+            torch, dev, shapes=[(b, d, n, v) for b in rows], ragged=None)
     return errs
 
 

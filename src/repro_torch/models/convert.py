@@ -20,7 +20,8 @@ a ``{"codes", "scale"}`` moment, a ``LeafSpec``) to that stacked layout
 and back; ``opt_state_to_reference`` / ``opt_state_from_reference`` carry
 the AdamW state (``{"step", "mu", "nu"}``, int8 moments as ``{"codes",
 "scale"}``), and ``train_state`` gives the ``{"params", "opt"}`` tree that
-the training loops of both packages checkpoint.
+the training loops of both packages checkpoint (a port-only
+``"router_bias"`` beside them for DeepSeek's router).
 
 On a mesh: ``from_reference(..., mesh=)`` lays the weights out by
 ``models/sharding.py``'s rules and ``opt_state_from_reference`` the
@@ -127,12 +128,15 @@ def stack_tree(named: dict, model: DecoderLM) -> dict:
     return tree
 
 
-def unstack_tree(tree: dict, model: DecoderLM) -> dict:
+def unstack_tree(tree: dict, model: DecoderLM, names=None) -> dict:
     """The inverse of ``stack_tree``: parameter name -> that parameter's
-    value (a stacked leaf's slice; views of the tree's arrays).  Raises
-    KeyError naming a parameter the tree lacks."""
+    value (a stacked leaf's slice; views of the tree's arrays), for each
+    of `names` (None: the model's parameters).  Raises KeyError naming a
+    parameter the tree lacks."""
     out = {}
-    for name, _ in model.named_parameters():
+    if names is None:
+        names = [name for name, _ in model.named_parameters()]
+    for name in names:
         path, layer = _locate(name)
         node = tree
         try:
@@ -236,15 +240,30 @@ def opt_state_from_reference(tree: dict, model: DecoderLM) -> dict:
     return state if mesh is None else shd.shard_opt_state(state, model, mesh)
 
 
+def router_biases(model: DecoderLM) -> dict:
+    """The router-bias buffers of `model`'s DeepSeek-routed MoE layers
+    (name -> buffer; {} in every config the reference has)."""
+    return {n: b for n, b in model.named_buffers()
+            if n.endswith(".router_bias")}
+
+
 def train_state(model: DecoderLM, opt_state: dict, *, spec: bool = False):
     """``{"params": ..., "opt": ...}`` in the reference's layout on the
     host, parameters in their own dtypes: the tree both packages' training
-    loops checkpoint.  ``spec=True``: its structure, shapes and dtypes as
-    ``LeafSpec``s, a restore target that copies nothing."""
+    loops checkpoint.  A model with DeepSeek's router adds
+    ``"router_bias"``, its bias buffers stacked as the parameters are (a
+    port-only key: the training step moves them, and routing reads them).
+    ``spec=True``: its structure, shapes and dtypes as ``LeafSpec``s, a
+    restore target that copies nothing."""
     leaf = _spec if spec else _host
-    return {"params": stack_tree({n: leaf(p) for n, p in
+    tree = {"params": stack_tree({n: leaf(p) for n, p in
                                   model.named_parameters()}, model),
             "opt": _opt_tree(opt_state, model, leaf)}
+    biases = router_biases(model)
+    if biases:
+        tree["router_bias"] = stack_tree(
+            {n: leaf(b) for n, b in biases.items()}, model)
+    return tree
 
 
 def train_state_shardings(model: DecoderLM, opt_state: dict) -> dict:
@@ -254,17 +273,31 @@ def train_state_shardings(model: DecoderLM, opt_state: dict) -> dict:
     mesh = shd.mesh_of(model.embed.table)
     params = shd.model_shardings(model, mesh)
     opt = shd.opt_state_shardings(opt_state, model, mesh)
-    return {"params": stack_tree(params, model),
+    tree = {"params": stack_tree(params, model),
             "opt": {"step": None, "mu": stack_tree(opt["mu"], model),
                     "nu": stack_tree(opt["nu"], model)}}
+    if router_biases(model):
+        tree["router_bias"] = None
+    return tree
 
 
 @torch.no_grad()
 def load_train_state(tree: dict, model: DecoderLM) -> dict:
-    """Copy a ``train_state`` tree's parameters into `model` and return its
-    AdamW state in the port's form (on the model's mesh when the model is
-    sharded; the tree's leaves may be DTensors already, from an elastic
-    restore)."""
+    """Copy a ``train_state`` tree's parameters (and router biases) into
+    `model` and return its AdamW state in the port's form (on the model's
+    mesh when the model is sharded; the tree's leaves may be DTensors
+    already, from an elastic restore).  Raises ValueError when the tree
+    and the model disagree on router biases: a resume without them would
+    route otherwise than the run it continues."""
+    biases = router_biases(model)
+    if bool(biases) != ("router_bias" in tree):
+        raise ValueError("the model has router biases and the tree none"
+                         if biases else
+                         "the tree has router biases and the model none")
+    if biases:
+        values = unstack_tree(tree["router_bias"], model, list(biases))
+        for name, b in biases.items():
+            b.copy_(_to(values[name], b.device))
     values = unstack_tree(tree["params"], model)
     for name, p in model.named_parameters():
         v = _to(values[name], p.device)

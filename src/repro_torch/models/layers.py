@@ -6,11 +6,21 @@ Weights keep the JAX package's (in, out) layout and are applied as
 arithmetic follows the reference where it decides parity: ``rms_norm``
 and the rotary rotation run in float32 and cast back, the dense head
 casts its product to float32 after the matmul.
+
+YaRN (arXiv:2309.00071, as DeepSeek-V3's ``DeepseekV3YarnRotaryEmbedding``
+computes it): a ``Yarn`` given to ``rope_table`` blends each rotary
+frequency with itself divided by ``factor`` through a linear ramp between
+the correction dims of ``beta_fast`` and ``beta_slow`` rotations over the
+original context, and scales cos and sin by ``attention_factor``; MLA
+multiplies its softmax scale by ``softmax_mscale``.  Without one every
+table is the plain rope's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +28,7 @@ from torch import nn
 
 from repro_torch.models.sharding import (fsdp, is_dtensor, local_grads,
                                          shard_offset)
+from repro_torch.spans import span
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -38,20 +49,77 @@ def norm_scale(dim: int, device) -> nn.Parameter:
 
 # ---------------------------------------------------------------- rotary ---
 
-def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude correction 0.1 * mscale * ln(factor) + 1 (1 for a
+    factor of at most 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """A YaRN context extension of the rotary tables (see the module
+    docstring); DeepSeek-V3's ``rope_scaling`` names the same fields."""
+    factor: float
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+    def correction_range(self, dim: int, theta: float) -> tuple:
+        """The (low, high) frequency indices between which the ramp runs:
+        the dims that turn ``beta_fast`` and ``beta_slow`` times over the
+        original context, floored and ceiled, within [0, dim - 1]."""
+        def at(rotations):
+            return dim * math.log(self.original_max_position / (
+                rotations * 2 * math.pi)) / (2 * math.log(theta))
+        return (max(math.floor(at(self.beta_fast)), 0),
+                min(math.ceil(at(self.beta_slow)), dim - 1))
+
+    @property
+    def attention_factor(self) -> float:
+        """The factor on cos and sin: mscale over mscale_all_dim."""
+        return (yarn_mscale(self.factor, self.mscale)
+                / yarn_mscale(self.factor, self.mscale_all_dim))
+
+    @property
+    def softmax_mscale(self) -> float:
+        """The factor on MLA's softmax scale: yarn_mscale(factor,
+        mscale_all_dim) squared (1 where mscale_all_dim is 0)."""
+        if not self.mscale_all_dim:
+            return 1.0
+        return yarn_mscale(self.factor, self.mscale_all_dim) ** 2
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None,
+                     yarn: Optional[Yarn] = None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    if yarn is None:
+        return 1.0 / (theta ** exps)
+    extra = 1.0 / (theta ** exps)
+    inter = 1.0 / (yarn.factor * theta ** exps)
+    low, high = yarn.correction_range(head_dim, theta)
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - low)
+                       / ((high if high != low else high + 0.001) - low),
+                       0, 1)
+    mask = 1.0 - ramp
+    return inter * (1.0 - mask) + extra * mask
 
 
-def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float,
+               yarn: Optional[Yarn] = None):
     """(cos, sin) of the rotation angles, each (..., S, 1, hd/2) float32,
-    for positions (..., S).  Computed once per forward or decode step and
-    shared by every layer (the reference recomputes it in each layer; the
-    values are the same)."""
-    freqs = rope_frequencies(head_dim, theta, positions.device)
+    for positions (..., S), YaRN's when `yarn` is given.  Computed once per
+    forward or decode step and shared by every layer (the reference
+    recomputes it in each layer; the values are the same)."""
+    freqs = rope_frequencies(head_dim, theta, positions.device, yarn)
     angles = positions[..., None].float() * freqs
-    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    if yarn is not None and yarn.attention_factor != 1.0:
+        cos, sin = cos * yarn.attention_factor, sin * yarn.attention_factor
+    return cos, sin
 
 
 def rotate(x: torch.Tensor, table) -> torch.Tensor:
@@ -88,8 +156,9 @@ class GatedMLP(nn.Module):
         normal_(self.wo, gen, 1.0 / math.sqrt(d_ff))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ((F.silu(x @ fsdp(self.wg)) * (x @ fsdp(self.wi)))
-                @ fsdp(self.wo))
+        with span("repro_torch.mlp"):
+            return ((F.silu(x @ fsdp(self.wg)) * (x @ fsdp(self.wi)))
+                    @ fsdp(self.wo))
 
 
 # -------------------------------------------------------------- embedding ---

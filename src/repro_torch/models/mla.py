@@ -14,12 +14,24 @@ pair and runs in the latent space with the key and value halves of
 ``wkv_b`` absorbed into the query and the output ("absorbed matrices").
 The rotary table is one of ``rope_dim`` channels (``layers.rope_table``),
 not of the model's head width.  The cache is written in place.
+
+With YaRN (``MLAConfig.yarn``, DeepSeek-V3's ``rope_scaling``) the rotary
+table the model passes in is YaRN's, and the softmax scale of ``forward``
+and the absorbed ``decode`` alike is (nope + rope)^-0.5 times
+``Yarn.softmax_mscale``: 192^-0.5 (0.1 ln 40 + 1)^2 = 0.135234 for
+DeepSeek-V3.
+
+Spans: ``forward`` runs in ``repro_torch.attention``, and its latent
+stage (the q and kv compressions and their norms, the rotation, the
+``wkv_b`` expansion and the concatenation) in ``repro_torch.mla.latent``
+inside it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -27,7 +39,9 @@ from torch import nn
 from repro_torch.models import sharding as shd
 from repro_torch.models.sharding import fsdp
 from repro_torch.models.attention import NEG_INF, DecodeIndex, _sdpa
-from repro_torch.models.layers import norm_scale, normal_, rms_norm, rotate
+from repro_torch.models.layers import (Yarn, norm_scale, normal_, rms_norm,
+                                       rotate)
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +54,7 @@ class MLAConfig:
     rope_dim: int = 64
     v_dim: int = 128
     rope_theta: float = 10_000.0
+    yarn: Optional[Yarn] = None
 
 
 class MLA(nn.Module):
@@ -102,20 +117,25 @@ class MLA(nn.Module):
         return kvb[..., :cfg.nope_dim], kvb[..., cfg.nope_dim:]
 
     def _scale(self) -> float:
-        return 1.0 / math.sqrt(self.cfg.nope_dim + self.cfg.rope_dim)
+        scale = 1.0 / math.sqrt(self.cfg.nope_dim + self.cfg.rope_dim)
+        if self.cfg.yarn is None:
+            return scale
+        return scale * self.cfg.yarn.softmax_mscale
 
     def forward(self, x: torch.Tensor, rope) -> torch.Tensor:
         """Training / prefill over x (B, S, D) (``mla.py:80-99``)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q_nope, q_rope, c_kv, k_rope = self._project(x, rope)
-        wk, wv = self._wkv_b()
-        k_nope = torch.einsum("bsc,chd->bshd", c_kv, wk)
-        v = torch.einsum("bsc,chd->bshd", c_kv, wv)
-        q_cat = torch.cat([q_nope, q_rope], dim=-1)
-        k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            b, s, cfg.n_heads, cfg.rope_dim)], dim=-1)
-        return _sdpa(q_cat, k_cat, v, self._scale()) @ fsdp(self.wo)
+        with span("repro_torch.attention"):
+            with span("repro_torch.mla.latent"):
+                q_nope, q_rope, c_kv, k_rope = self._project(x, rope)
+                wk, wv = self._wkv_b()
+                k_nope = torch.einsum("bsc,chd->bshd", c_kv, wk)
+                v = torch.einsum("bsc,chd->bshd", c_kv, wv)
+                q_cat = torch.cat([q_nope, q_rope], dim=-1)
+                k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+                    b, s, cfg.n_heads, cfg.rope_dim)], dim=-1)
+            return _sdpa(q_cat, k_cat, v, self._scale()) @ fsdp(self.wo)
 
     def decode(self, x: torch.Tensor, c_kv: torch.Tensor,
                k_rope: torch.Tensor, rope,

@@ -18,7 +18,10 @@ Mixers: attention (``attn``, ``attn_local``), ``mla``, ``mamba``,
 ffns: dense, ``moe`` (whose Switch auxiliary loss ``forward`` returns and
 ``loss_fn`` adds, summed over the blocks in the reference's order) or
 none.  Each mixer with a rotation (attention over ``head_dim`` channels,
-MLA over ``mla_rope_dim``) reads a rotary table of its own width.
+MLA over ``mla_rope_dim``) reads a rotary table of its own width.  A
+``configs.PortModelConfig`` adds DeepSeek-V3's router, a held share of
+the experts (``models/moe.py``) and YaRN (``layers.Yarn``: every rotary
+table, and MLA's softmax scale); a plain ModelConfig has none of them.
 
 Heads: "dense" (the unembedding, a plain matmul as in the reference) or
 "loghd" (the paper's class-axis compression of the vocab classifier:
@@ -51,6 +54,7 @@ plain scalar, the same on every rank; logits as DTensors.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -67,14 +71,31 @@ from repro_torch.models import sharding as shd
 from repro_torch.models.attention import (Attention, AttnConfig, DecodeIndex,
                                           decode_attention_seqsharded,
                                           init_kv_cache)
-from repro_torch.models.layers import (DenseHead, Embed, GatedMLP, norm_scale,
-                                       normal_, rms_norm, rope_table)
+from repro_torch.models.layers import (DenseHead, Embed, GatedMLP, Yarn,
+                                       norm_scale, normal_, rms_norm,
+                                       rope_table)
 from repro_torch.models.mamba import Mamba, MambaConfig, init_mamba_state
 from repro_torch.models.mla import MLA, MLAConfig, init_mla_cache
-from repro_torch.models.moe import MoE, MoEConfig, moe_block
+from repro_torch.models.moe import MoE, MoEConfig, moe_block, replay
 from repro_torch.models.xlstm import (MLSTM, SLSTM, XLSTMConfig,
                                       init_mlstm_state, init_slstm_state)
 from repro_torch.spans import span
+
+
+def _yarn(cfg: ModelConfig) -> Optional[Yarn]:
+    """The config's YaRN settings (a ``PortModelConfig`` with
+    ``yarn_factor`` > 0), else None."""
+    if not getattr(cfg, "yarn_factor", 0):
+        return None
+    return Yarn(cfg.yarn_factor, cfg.yarn_original_max_position,
+                cfg.yarn_beta_fast, cfg.yarn_beta_slow, cfg.yarn_mscale,
+                cfg.yarn_mscale_all_dim)
+
+
+# the MoE settings a PortModelConfig carries under the same names
+_ROUTER_KEYS = ("router", "n_routed_experts", "held_offset", "n_group",
+                "topk_group", "routed_scaling_factor", "balance_weight",
+                "bias_update_rate")
 
 
 def _mixer_cfg(cfg: ModelConfig, blk: BlockSpec):
@@ -92,7 +113,7 @@ def _mixer_cfg(cfg: ModelConfig, blk: BlockSpec):
             d_model=cfg.d_model, n_heads=cfg.n_heads, q_lora=cfg.mla_q_lora,
             kv_lora=cfg.mla_kv_lora, nope_dim=cfg.mla_nope_dim,
             rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim,
-            rope_theta=cfg.rope_theta)
+            rope_theta=cfg.rope_theta, yarn=_yarn(cfg))
     if blk.mixer == "mamba":
         return MambaConfig(d_model=cfg.d_model)
     if blk.mixer in ("mlstm", "slstm"):
@@ -107,7 +128,9 @@ def _ffn_cfg(cfg: ModelConfig, blk: BlockSpec) -> Optional[MoEConfig]:
     return MoEConfig(d_model=cfg.d_model, d_ff=cfg.moe_d_ff,
                      n_experts=cfg.n_experts, top_k=cfg.top_k,
                      capacity_factor=cfg.capacity_factor,
-                     shared_expert_ff=cfg.shared_expert_ff)
+                     shared_expert_ff=cfg.shared_expert_ff,
+                     **{k: getattr(cfg, k) for k in _ROUTER_KEYS
+                        if hasattr(cfg, k)})
 
 
 # a block's mixer module, under the reference's parameter key
@@ -136,7 +159,8 @@ def _remat(policy: str):
     (``nothing_saveable``); "dots" keeps the outputs of the matmuls without
     batch dimensions and recomputes the rest
     (``dots_with_no_batch_dims_saveable``).  Without grad mode every
-    policy runs the block plainly."""
+    policy runs the block plainly.  The recomputation runs under
+    ``moe.replay``, so the routing's counts are the forward's alone."""
     if policy not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat_policy {policy!r}")
     context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
@@ -146,9 +170,16 @@ def _remat(policy: str):
         if policy == "none" or not torch.is_grad_enabled():
             return blk(x, ropes)
         kw = {"context_fn": context} if context else {}
+        calls = []
+
+        def forward_or_replay(x, ropes):
+            with replay() if calls else contextlib.nullcontext():
+                calls.append(None)
+                return blk(x, ropes)
         # no random op in a block: nothing to replay
-        return ckpt.checkpoint(blk, x, ropes, use_reentrant=False,
-                               preserve_rng_state=False, **kw)
+        return ckpt.checkpoint(forward_or_replay, x, ropes,
+                               use_reentrant=False, preserve_rng_state=False,
+                               **kw)
     return run
 
 
@@ -374,8 +405,9 @@ class DecoderLM(nn.Module):
         """Each rotary width's table at `positions`, computed once a pass
         and shared by the layers (the reference recomputes it in each);
         replicated DTensors when x is a DTensor."""
+        yarn = _yarn(self.cfg)
         return {dim: tuple(shd.like(t, x) for t in rope_table(
-                    positions, dim, self.cfg.rope_theta))
+                    positions, dim, self.cfg.rope_theta, yarn))
                 for dim in self.rope_dims}
 
     def backbone(self, tokens=None, embeddings=None):

@@ -36,6 +36,11 @@ with the other product contracted, so a scale can differ by an ulp, and
 after it a code at a rounding boundary by one step; and the clip scale
 follows from a global norm summed in another order.
 
+Memory: a plain leaf of more than ``SLICE_ELEMENTS`` elements with
+float32 moments (deepseek-v3's embedding) is updated a slice of rows at a
+time, its moments in place, by the same arithmetic: the float64
+temporaries of the emulated fused multiply-adds stay bounded.
+
 Sharded parameters (DTensors laid out by ``models/sharding.py``): each
 moment is a DTensor on its parameter's layout; an int8 moment's codes
 are too, and its scale has the parameter's layout with the last axis
@@ -70,6 +75,10 @@ class AdamWConfig:
 
 
 INT8_MIN_ELEMENTS = 1 << 16
+# a plain leaf with float32 moments above this many elements is updated a
+# slice of rows at a time (a 2^27-element slice's float64 temporaries take
+# about 1 GB each; deepseek-v3's (129,280, 7,168) embedding whole, 7.4 GB)
+SLICE_ELEMENTS = 1 << 27
 _RECIP_127 = float(np.float32(1.0 / 127.0))
 
 
@@ -211,27 +220,49 @@ def adamw_update(state: dict, params: Mapping[str, torch.Tensor],
     b1, b2 = _f32(cfg.b1), _f32(cfg.b2)
     c1, c2 = _f32(1 - cfg.b1), _f32(1 - cfg.b2)
     wd, eps = _f32(cfg.weight_decay), _f32(cfg.eps)
+    k = (scale, b1c, b2c, b1, b2, c1, c2, wd, eps, lr_t)
     for n in names:
         p, g = params[n], grads[n]
-        sharded = _dtensor(p)
-        if sharded:
+        mu_old, nu_old = state["mu"][n], state["nu"][n]
+        if (not _dtensor(p) and p.numel() > SLICE_ELEMENTS
+                and not isinstance(mu_old, dict)):
+            # a large leaf a slice of rows at a time, its float32 moments
+            # updated in place: the float64 temporaries stay bounded
+            rows = max(1, SLICE_ELEMENTS // (p.numel() // p.shape[0]))
+            for r in range(0, p.shape[0], rows):
+                sl = slice(r, r + rows)
+                mu, nu = _leaf_step(p[sl], g[sl], mu_old[sl], nu_old[sl], k)
+                mu_old[sl].copy_(mu)
+                nu_old[sl].copy_(nu)
+                del mu, nu
+            continue
+        if _dtensor(p):
             g = g.redistribute(p.device_mesh, p.placements).to_local()
             p = p.to_local()
-        dev = p.device
-        g = g.float() * scale.to(dev)
-        mu = _fma(b1, _moment_in(state["mu"][n], p.shape), c1 * g)
-        nu = _fma(b2, _moment_in(state["nu"][n], p.shape), (c2 * g) * g)
-        del g
-        den = b1c.to(dev) * (torch.sqrt(nu / b2c.to(dev)) + eps)
-        pf = p.float()
-        x = _fma(pf, wd, mu / den)
-        del den
-        p.copy_(_fma(-lr_t, x, pf))
-        del x, pf
-        state["mu"][n] = _moment_out(mu, state["mu"][n], params[n], cfg)
-        state["nu"][n] = _moment_out(nu, state["nu"][n], params[n], cfg)
+        mu, nu = _leaf_step(p, g, _moment_in(mu_old, p.shape),
+                            _moment_in(nu_old, p.shape), k)
+        state["mu"][n] = _moment_out(mu, mu_old, params[n], cfg)
+        state["nu"][n] = _moment_out(nu, nu_old, params[n], cfg)
     state["step"] = step
     return state, params
+
+
+def _leaf_step(p: torch.Tensor, g: torch.Tensor, mu_in: torch.Tensor,
+               nu_in: torch.Tensor, k: tuple) -> tuple:
+    """One leaf's AdamW arithmetic: writes the new value into `p` (a local
+    tensor or a view of one) and returns its new float32 moments."""
+    scale, b1c, b2c, b1, b2, c1, c2, wd, eps, lr_t = k
+    dev = p.device
+    g = g.float() * scale.to(dev)
+    mu = _fma(b1, mu_in, c1 * g)
+    nu = _fma(b2, nu_in, (c2 * g) * g)
+    del g
+    den = b1c.to(dev) * (torch.sqrt(nu / b2c.to(dev)) + eps)
+    pf = p.float()
+    x = _fma(pf, wd, mu / den)
+    del den
+    p.copy_(_fma(-lr_t, x, pf))
+    return mu, nu
 
 
 def _moment_in(m, local_shape) -> torch.Tensor:

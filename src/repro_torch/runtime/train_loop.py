@@ -48,6 +48,7 @@ from repro_torch.models import sharding as shd
 from repro_torch.models.convert import (load_train_state, stacked_layers,
                                         train_state, train_state_shardings)
 from repro_torch.models.model import DecoderLM, init_params, loss_fn
+from repro_torch.models.moe import update_router_biases
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.spans import span
@@ -82,8 +83,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """``(params, opt_state, batch, step) -> (params, opt_state, loss)``:
     the loss and its gradients (summed over ``loop.microbatches`` slices
     of the batch in float32, then averaged), then one AdamW step at the
-    cosine LR of `step`.  The parameters and the state are updated in
-    place; the loss is a float32 scalar tensor, not synchronised.  On
+    cosine LR of `step`, then the MoE layers' router-bias updates
+    (DeepSeek-V3's, ``models/moe.py``; none in other configs).  The
+    parameters, the state and the biases are updated in place; the loss
+    is a float32 scalar tensor, not synchronised.  On
     `mesh` the parameters and the state must be laid out on it
     (``shard_model``, ``shard_opt_state``) and the batch is the global
     one."""
@@ -123,6 +126,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         with span("repro_torch.train.optimizer"):
             adamw_update(opt_state, dict(params.named_parameters()),
                          dict(zip(names, grads)), opt_cfg, lr=lr)
+            update_router_biases(params)
         return params, opt_state, loss
     return train_step
 
