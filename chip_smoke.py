@@ -202,7 +202,28 @@ KERNELS = {
                    "src/repro/kernels/loghd_head/loghd_head.py:78"),
     "moe_slots": ("src/repro_torch/kernels/csrc/moe_slots.cu",
                   "none: `jnp.cumsum`, `src/repro/models/moe.py:101`"),
+    "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                   "none: the einsums of `src/repro/models/attention.py:107`"),
 }
+# the launch names each kernel's wrapper counts under
+KERNEL_LAUNCHES = {"flash_attn": ("flash_attn_fwd", "flash_attn_bwd")}
+# flash_attn's checked and timed shapes (B, S, H, KVH, d, dv): the three
+# training cells' attention, granite at 8 x 4,096 and 32 x 1,024 (16 query
+# heads on 8 KV heads of 64) and DeepSeek-V3's MLA at 4 x 4,096 (128 heads,
+# 192 / 128)
+FA_SHAPES = [(8, 4096, 16, 8, 64, 64), (32, 1024, 16, 8, 64, 64),
+             (4, 4096, 128, 128, 192, 128)]
+# every comparison is the largest over (batch row, head, FA_TILE rows of
+# queries or keys) of ||a - b|| / ||b|| (``fa_tile_err``), over the whole
+# o, dq, dk and dv; the plain version in float32 runs on pieces of at most
+# FA_PIECE scores.  At these shapes on an H100 the kernel read at most
+# 2.4e-3 (o) and 3.3e-3 (gradients) against the float32 plain version,
+# and 1.1e-2 against the einsum path, whose own distance from the plain
+# version is 6.1e-3 (o) and 1.1e-2 (gradients): the bf16 noise of the
+# reference's arithmetic.  The tolerances stand about 2.5 times above the
+# kernel's readings, so that a 3% fault on one tile fails
+FA_TILE, FA_PIECE = 128, 1 << 28
+FA_TOL = {"o": 6e-3, "grads": 8e-3, "einsum": 2.5e-2}
 # moe_slots' checked shapes (tokens T, experts E, top-k, capacity factor):
 # granite-moe's training step (8 x 4,096 tokens, top-8 of 32), deepseek-v3's
 # 256 experts and a decode step of 4 tokens (these three timed), granite's
@@ -415,6 +436,47 @@ def moe_layers(model) -> int:
     return sum(isinstance(m, MoE) for m in model.modules())
 
 
+def flash_launches(model, cfg, seq: int, fwd: int, bwd: int) -> dict:
+    """``flash_attn``'s launches over `fwd` forward and `bwd` backward
+    passes of `model` at sequence length `seq`: one a pass for each
+    attention layer whose core is ``_sdpa`` (MLA, or attention without a
+    window or with `seq` inside it) at a compiled width, in a bf16
+    config; none otherwise."""
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.mla import MLA
+    layers = 0
+    for m in model.modules() if cfg.dtype == "bfloat16" else ():
+        if isinstance(m, Attention):
+            full = m.cfg.window is None or seq <= m.cfg.window
+            layers += full and (m.cfg.head_dim, m.cfg.head_dim) in fa.PAIRS
+        elif isinstance(m, MLA):
+            layers += (m.cfg.nope_dim + m.cfg.rope_dim,
+                       m.cfg.v_dim) in fa.PAIRS
+    fwd_name, bwd_name = KERNEL_LAUNCHES["flash_attn"]
+    return {fwd_name: layers * fwd, bwd_name: layers * bwd}
+
+
+def flash_train_launches(model, cfg, steps: int, seq: int) -> dict:
+    """``flash_launches`` of `steps` training steps: a forward a step (two
+    under remat: the recomputation) and a backward."""
+    remat = 1 if cfg.remat_policy == "none" else 2
+    return flash_launches(model, cfg, seq, steps * remat, steps)
+
+
+# the LM paths that never call ``_sdpa``: decode, and serving, whose loop
+# prefills a slot through decode steps
+NO_FLASH = dict.fromkeys(KERNEL_LAUNCHES["flash_attn"], 0)
+
+
+def lm_launches(launches: dict, flash: dict, what: str) -> dict:
+    """An LM path's launches but attention's own, after checking those
+    against `flash` (``flash_launches``) exactly."""
+    got = {name: launches.get(name, 0) for name in flash}
+    check(got == flash, f"{what}: flash_attn launches {got}, not {flash}")
+    return {k: v for k, v in launches.items() if k not in flash}
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
@@ -504,6 +566,169 @@ def phase_kernels(torch, dev) -> dict:
             errs["bundle_update"] = err
     errs["hdc_encode"] = check_hdc_encode(torch, dev, g)
     return errs
+
+
+def fa_flops(b: int, s: int, h: int, d: int, dv: int) -> tuple:
+    """(forward, backward) flops of causal attention at q0 = 0: each of the
+    s (s + 1) / 2 visible (query, key) pairs a head costs 2 (d + dv)
+    forward (S = Q K^T, O = P V) and 2 (3 d + 2 dv) backward (S, dP = dO
+    V^T, dV, dK, dQ)."""
+    pairs = b * h * s * (s + 1) / 2
+    return 2 * pairs * (d + dv), 2 * pairs * (3 * d + 2 * dv)
+
+
+def fa_tile_err(a, b) -> float:
+    """The largest ||a - b|| / ||b|| over (batch row, FA_TILE rows, head)
+    of a and b (B, S, heads, width): each tile of rows judged on its own
+    scale, so that late rows, whose values are small, count as much as the
+    first."""
+    import torch.nn.functional as F
+    pad = -b.shape[1] % FA_TILE
+    num, den = (F.pad(x, (0, 0, 0, 0, 0, pad)).unflatten(1, (-1, FA_TILE))
+                .square().sum((2, 4)) for x in (a.float() - b.float(),
+                                                b.float()))
+    return float((num / den).sqrt().max())
+
+
+def fa_compare(q, k, v, do, scale: float, got: list) -> dict:
+    """flash_attn's results `got` (o (B, S, H * dv), dq, dk, dv) for q, k,
+    v and the gradient ``do`` against the plain version in float32, run on
+    pieces of at most FA_PIECE scores that cover every batch row and head,
+    and against the einsum path at the whole shape.  Returns the
+    ``fa_tile_err`` of o, dq, dk and dv against the plain version
+    ("plain") and against the einsum path ("einsum"), the einsum path's
+    own against the plain version ("einsum_plain": the bf16 noise of the
+    reference's arithmetic) and the largest absolute difference from the
+    plain version ("max_abs_err")."""
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models import attention as attn
+    b, s, h, _ = q.shape
+    kvh, dv = k.shape[2], v.shape[3]
+    g = h // kvh
+    x = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o_e = attn._sdpa_einsum(*x, scale)
+    o_e.backward(do)
+    ein = [o_e.detach().view(b, s, h, dv)] + [t.grad for t in x]
+    del x, o_e
+    got = [got[0].view(b, s, h, dv)] + list(got[1:])
+    do4 = do.view(b, s, h, dv)
+    nk = min(kvh, max(1, FA_PIECE // (g * s * s)))
+    nb = max(1, FA_PIECE // (h * s * s)) if nk == kvh else 1
+    out = {"plain": [0.0] * 4, "einsum_plain": [0.0] * 4, "max_abs_err": 0.0}
+    for b0 in range(0, b, nb):
+        for k0 in range(0, kvh, nk):
+            bs, ks = slice(b0, b0 + nb), slice(k0, k0 + nk)
+            hs = slice(k0 * g, (k0 + nk) * g)
+            qp, kp, vp = q[bs, :, hs], k[bs, :, ks], v[bs, :, ks]
+            o_r, lse = fa.flash_attn_ref(qp, kp, vp, scale)
+            want = [o_r.view(*qp.shape[:3], dv)] + list(
+                fa.flash_attn_bwd_ref(do4[bs, :, hs].flatten(2), qp, kp, vp,
+                                      o_r, lse, scale))
+            for i, (w, heads) in enumerate(zip(want, (hs, hs, ks, ks))):
+                mine, theirs = got[i][bs, :, heads], ein[i][bs, :, heads]
+                out["plain"][i] = max(out["plain"][i], fa_tile_err(mine, w))
+                out["einsum_plain"][i] = max(out["einsum_plain"][i],
+                                             fa_tile_err(theirs, w))
+                out["max_abs_err"] = max(out["max_abs_err"],
+                                         max_err(mine, w))
+            del o_r, lse, want
+    out["einsum"] = [fa_tile_err(mine, e) for mine, e in zip(got, ein)]
+    return out
+
+
+def phase_flash_attn(torch, dev, rates: dict) -> tuple:
+    """flash_attn against its plain version in float32 and against the
+    einsum path at FA_SHAPES, over every batch row, head and row
+    (``fa_compare``; one forward and one backward launch a training call),
+    then the kernels' CUDA-event times beside their bound (causal bf16
+    flops at the card's peak), the einsum path's and the library's
+    (``scaled_dot_product_attention``, a yardstick the port never calls).
+    Returns (the largest absolute difference from the plain version, the
+    times, with the largest ``fa_tile_err`` as "max_rel_err")."""
+    import math
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build, common
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import attention as attn
+    for line in _build.build_logs.get("flash_attn", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas flash_attn: {line.strip()}")
+    log(f"flash_attn build: {_build.build_seconds.get('flash_attn')} s")
+    g = torch.Generator(device=dev).manual_seed(31)
+    worst_abs, worst_rel, rows = 0.0, 0.0, []
+
+    for b, s, h, kvh, d, dv in FA_SHAPES:
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16) for shape in ((b, s, h, d), (b, s, kvh, d),
+                                          (b, s, kvh, dv), (b, s, h * dv)))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        common.reset_launches()
+        o = fa.flash_attn(*leaves, scale)
+        o.backward(do)
+        torch.cuda.synchronize()
+        check(common.launches["flash_attn_fwd"] == 1
+              and common.launches["flash_attn_bwd"] == 1,
+              f"flash_attn launches {dict(common.launches)} for one call "
+              f"and its backward")
+        e = fa_compare(q, k, v, do, scale,
+                       [o.detach()] + [t.grad for t in leaves])
+        del leaves
+        fmt = {key: " ".join(f"{x:.2e}" for x in e[key])
+               for key in ("plain", "einsum", "einsum_plain")}
+        log(f"flash_attn {(b, s, h, kvh, d, dv)}: largest ||a - b|| / ||b|| "
+            f"over (batch row, head, {FA_TILE} rows) of o dq dk dv: against "
+            f"plain (float32) {fmt['plain']}, against the einsum path "
+            f"{fmt['einsum']}; the einsum path against plain "
+            f"{fmt['einsum_plain']}; max_abs_err against plain "
+            f"{e['max_abs_err']:.3e} (tolerances {FA_TOL})")
+        check(e["plain"][0] <= FA_TOL["o"],
+              f"flash_attn o differs by {e['plain'][0]:.2e}")
+        check(max(e["plain"][1:]) <= FA_TOL["grads"],
+              f"flash_attn gradients differ by {max(e['plain'][1:]):.2e}")
+        check(max(e["einsum"]) <= FA_TOL["einsum"],
+              f"flash_attn differs from the einsum path by "
+              f"{max(e['einsum']):.2e}")
+        worst_abs = max(worst_abs, e["max_abs_err"])
+        worst_rel = max(worst_rel, *e["plain"])
+
+        o, lse = fa_ops._fwd(q, k, v, scale, True, 0)
+        fwd = lambda: fa_ops._fwd(q, k, v, scale, True, 0)
+        bwd = lambda: fa_ops._bwd(do, q, k, v, o, lse, scale, True, 0)
+        f_ops, b_ops = fa_flops(b, s, h, d, dv)
+
+        def einsum_fb():
+            x = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            attn._sdpa_einsum(*x, scale).backward(do)
+
+        def library_fb():
+            x = [t.detach().transpose(1, 2).requires_grad_(True)
+                 for t in (q, k, v)]
+            F.scaled_dot_product_attention(
+                *x, is_causal=True, scale=scale, enable_gqa=kvh != h
+            ).transpose(1, 2).reshape(b, s, h * dv).backward(do)
+        row = {"shape": [b, s, h, kvh, d, dv],
+               "fwd_ms": time_ms(torch, fwd, reps=10, inner=3),
+               "bwd_ms": time_ms(torch, bwd, reps=10, inner=3),
+               "fwd_bound_ms": f_ops / rates["bf16"] * 1e3,
+               "bwd_bound_ms": b_ops / rates["bf16"] * 1e3,
+               "plain_ms": time_ms(torch, einsum_fb, reps=3, inner=1),
+               "library_ms": time_ms(torch, library_fb, reps=5, inner=2)}
+        row["ms"] = row["fwd_ms"] + row["bwd_ms"]
+        row["bound_ms"] = row["fwd_bound_ms"] + row["bwd_bound_ms"]
+        row["fwd_tflops"] = f_ops / row["fwd_ms"] / 1e9
+        row["bwd_tflops"] = b_ops / row["bwd_ms"] / 1e9
+        log(f"time flash_attn {row}")
+        rows.append(row)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    times = {key: rows[0][key] for key in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms")}
+    times.update(bound_by="operations", device_ms=None, plain_device_ms=None,
+                 library_device_ms=None, shapes=rows, max_rel_err=worst_rel)
+    return worst_abs, times
 
 
 def ms_case(torch, flat, e: int, cap: int) -> dict:
@@ -2381,7 +2606,8 @@ def phase_lm(torch, dev, cfg32=None, cfg16=None, *, heads=("loghd", "dense"),
         check(launches.get("moe_slots", 0) == want_ms,
               f"moe_slots launched {launches.get('moe_slots', 0)} times "
               f"over {n_steps} decode steps, not {want_ms}")
-        check(sum(launches.values()) == want_lh + want_ms,
+        check(sum(lm_launches(launches, NO_FLASH, "LM serve").values())
+              == want_lh + want_ms,
               f"other kernels launched on the LM path: {launches}")
 
         # one decode step at the serving batch, profiled
@@ -2667,7 +2893,8 @@ def train_head(torch, dev, cfg, steps: int = LT_STEPS) -> dict:
     check(all(c == want for c in r["per_step"]),
           f"{cfg.head} head: loghd_head launches a step {r['per_step']}, "
           f"not {want} each")
-    check(sum(launches.values()) == want * steps,
+    flash = flash_train_launches(model, cfg, steps, LT_SEQ)
+    check(sum(lm_launches(launches, flash, cfg.head).values()) == want * steps,
           f"{cfg.head} head: kernels launched on the training path: "
           f"{launches}")
     step_ms = statistics.median(r["walls"]) * 1e3
@@ -2703,7 +2930,9 @@ def plain_head_losses(torch, dev, cfg, steps: int = LT_STEPS) -> list:
         r = train_losses(torch, dev, cfg, steps)
     finally:
         dispatch.loghd_head_autograd = real
-    check(not r["launches"], f"plain-head run launched {r['launches']}")
+    flash = flash_train_launches(r["model"], cfg, steps, LT_SEQ)
+    check(not lm_launches(r["launches"], flash, "plain head"),
+          f"plain-head run launched {r['launches']}")
     del r["model"], r["opt_state"]
     return r["losses"]
 
@@ -2737,7 +2966,8 @@ def check_chunked(torch, dev, cfg, model) -> dict:
         f"loss {loss.item():.6f} against {whole.item():.6f} unchunked "
         f"(relative {rel:.2e}, bound {LT_CHUNK_RTOL}); launches {launches}")
     check(rel <= LT_CHUNK_RTOL, f"chunked CE loss {rel:.2e} from unchunked")
-    check(launches == {"loghd_head": 4},
+    flash = flash_train_launches(model, cfg, 1, s)
+    check(lm_launches(launches, flash, "chunked CE") == {"loghd_head": 4},
           f"chunked CE step launched {launches}, not loghd_head 4 times")
     return dict(launches=launches, rel=rel)
 
@@ -2987,7 +3217,9 @@ def lm_arch_train(torch, dev, cfg) -> dict:
         1 if cfg.remat_policy == "none" else 2)
     check(r["launches"].get("moe_slots", 0) == want_ms,
           f"{cfg.name}: moe_slots launches {r['launches']}, not {want_ms}")
-    check(sum(r["launches"].values()) == 2 * want + want_ms,
+    flash = flash_train_launches(r["model"], cfg, 2, LT_SEQ)
+    check(sum(lm_launches(r["launches"], flash, cfg.name).values())
+          == 2 * want + want_ms,
           f"{cfg.name}: kernels launched on the training path: "
           f"{r['launches']}")
     out = dict(losses=r["losses"], launches=r["launches"], aux=aux,
@@ -3159,6 +3391,7 @@ def ls_train(torch, dev, mesh) -> dict:
     placed = out["params"].embed.table
     check(shd_mesh_names(placed) == ("data", "model"),
           f"the CLI's model is not on the debug mesh: {type(placed)}")
+    flash = flash_train_launches(out["params"], cfg, LS_STEPS, LT_SEQ)
     del out["params"]
     written = dir_bytes(LS_CKPT_DIR)
     shutil.rmtree(LS_CKPT_DIR)
@@ -3179,7 +3412,8 @@ def ls_train(torch, dev, mesh) -> dict:
           f"{flat['losses']}")
     check(per_step == [1] * LS_STEPS, f"loghd_head launches a sharded "
           f"step: {per_step}")
-    check(launches == {"loghd_head": LS_STEPS}, f"kernels launched on the "
+    check(lm_launches(launches, flash, "sharded training")
+          == {"loghd_head": LS_STEPS}, f"kernels launched on the "
           f"sharded training path: {launches}")
     return dict(losses=out["losses"], flat_losses=flat["losses"],
                 walls=walls, flat_walls=flat["walls"], peak=peak,
@@ -3259,7 +3493,8 @@ def ls_serve(torch, dev, mesh) -> dict:
         f"(B = 4, median of 10) {mesh_ms:.3f} ms on the mesh against "
         f"{flat_ms:.3f} ms; launches {launches}")
     check(same, "the sharded decode served other tokens than the unsharded")
-    check(launches == {"loghd_head": steps[0]}, f"loghd_head launches over "
+    check(lm_launches(launches, NO_FLASH, "sharded decode")
+          == {"loghd_head": steps[0]}, f"loghd_head launches over "
           f"{steps[0]} sharded decode steps: {launches}")
     del model
     torch.cuda.empty_cache()
@@ -3310,8 +3545,9 @@ def ls_granite(torch, dev, mesh) -> dict:
         f"agrees on {agree:.4f}; launches {launches}")
     check(bool(torch.isfinite(got).all()), "granite EP logits not finite")
     torch.testing.assert_close(got, want, **tol)
-    check(launches == {"loghd_head": LS_EP_STEPS,
-                       "moe_slots": LS_EP_STEPS * moe_layers(model)},
+    check(lm_launches(launches, NO_FLASH, "EP decode")
+          == {"loghd_head": LS_EP_STEPS,
+              "moe_slots": LS_EP_STEPS * moe_layers(model)},
           f"loghd_head and moe_slots launches over {LS_EP_STEPS} "
           f"expert-parallel decode steps: {launches}")
     del model
@@ -3413,7 +3649,10 @@ def ls_restore(torch, dev, mesh) -> dict:
     check(abs(meshed["losses"][0] - flat["losses"][0])
           <= LT_RESUME_RTOL * abs(flat["losses"][0]),
           f"resumed losses {meshed['losses']} against {flat['losses']}")
-    check(launches == {"loghd_head": 1}, f"kernels launched on the restored "
+    flash = flash_train_launches(meshed["params"], cfg,
+                                 len(meshed["losses"]), LT_SEQ)
+    check(lm_launches(launches, flash, "restored step")
+          == {"loghd_head": 1}, f"kernels launched on the restored "
           f"step: {launches}")
     del meshed, flat
     torch.cuda.empty_cache()
@@ -4467,6 +4706,7 @@ def main() -> int:
 
     errs = phase_kernels(torch, dev)
     errs["moe_slots"], moe_times = phase_moe_slots(torch, dev, rates)
+    errs["flash_attn"], fa_times = phase_flash_attn(torch, dev, rates)
     errs["loghd_head"] = phase_lm_kernel(torch, dev)
     arch_head_errs = phase_lm_arch_kernels(torch, dev)
     main_run = phase_main_path(torch, dev)
@@ -4484,6 +4724,7 @@ def main() -> int:
     examples = phase_examples(torch, dev, rates)
     times = phase_times(torch, main_run, mm, lm, rates)
     times["moe_slots"] = moe_times
+    times["flash_attn"] = fa_times
     # the kernels at the examples' shapes beside the earlier rows
     for name, rows in examples["times"].items():
         times[name].setdefault("shapes", []).extend(rows)
@@ -4536,12 +4777,16 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(c.get(name, 0) for c in by_path.values()),
-            "launches_by_path": {p: c.get(name, 0)
+            "launches": sum(c.get(n, 0) for c in by_path.values()
+                            for n in KERNEL_LAUNCHES.get(name, (name,))),
+            "launches_by_path": {p: sum(c.get(n, 0) for n in
+                                        KERNEL_LAUNCHES.get(name, (name,)))
                                  for p, c in by_path.items()},
             "max_abs_err": errs[name], "ms": t["ms"],
             **({"max_abs_err_by_arch": arch_head_errs}
                if name == "loghd_head" else {}),
+            **({"max_rel_err": t["max_rel_err"]}
+               if "max_rel_err" in t else {}),
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],

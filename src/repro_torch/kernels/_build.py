@@ -32,8 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each library built by this
-# process, keyed by kernel name
+# process, keyed by kernel name, and the wall seconds from the start of
+# the parallel build to that library's compiler exit
 build_logs: dict[str, str] = {}
+build_seconds: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -99,6 +101,7 @@ def build_all() -> float:
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         build_logs[name] = log
+        build_seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
         else:

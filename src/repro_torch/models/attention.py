@@ -6,13 +6,18 @@ sequence-sharded flash decode of long contexts (port of
 Variants: grouped KV heads, qk-norm (per-head RMSNorm on q and k before the
 rotation), QKV bias, and the sliding window of local layers.
 
-The arithmetic follows the reference: logits are the einsum in the
+The core of full attention (``_sdpa``) takes one of two paths, by what
+the call's tensors are.  CUDA bf16 tensors whose (d, dv) widths the
+``kernels.flash_attn`` kernels are compiled for go to that fused kernel
+(forward and backward; float32 scores and softmax statistics, bf16
+operands, nothing of size S x T in device memory).  Everything else (CPU
+tensors, other widths such as gemma3's 256, float32) takes the einsum
+path, which follows the reference: logits are the einsum in the
 activations' dtype cast to float32, scaled, masked with ``NEG_INF``,
 softmaxed in float32, and the probabilities cast to the value dtype before
-the PV product.  Einsums, not ``scaled_dot_product_attention``, whose
-masking and precision differ.  Queries are processed in chunks of
-``ATTN_CHUNK`` rows, as the reference bounds its (B, H, chunk, T) logits,
-each chunk recomputed in the backward when autograd records.
+the PV product, queries in chunks of ``ATTN_CHUNK`` rows as the reference
+bounds its (B, H, chunk, T) logits, each chunk recomputed in the backward
+when autograd records.  ``SDPA_PATHS`` counts the calls by path.
 
 The decode cache is updated in place: a step writes its token's k and v
 into the cache tensors it is given (the reference returns a new cache).
@@ -26,6 +31,7 @@ sequence takes each token's k and v on the rank that holds its slot.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Optional
@@ -34,6 +40,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import flash_attn as fa
 from repro_torch.models import sharding as shd
 from repro_torch.models.layers import (norm_scale, normal_, rms_norm,
                                        rope_table, rotate)
@@ -43,6 +50,9 @@ from repro_torch.spans import span
 NEG_INF = -2.0 ** 30
 ATTN_CHUNK = 512  # q-chunk size for memory-efficient attention
 _DP = ("pod", "data")
+
+# ``_sdpa`` calls by the path they took: "flash" (the kernel) or "einsum"
+SDPA_PATHS: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +154,17 @@ def _sdpa(q, k, v, scale: float, *, causal: bool = True,
     H * hd), a DTensor for DTensors (``_sdpa_sharded``)."""
     if shd.is_dtensor(q):
         return _sdpa_sharded(q, k, v, scale, causal, chunk)
+    path = "flash" if fa.takes(q, k, v) else "einsum"
+    SDPA_PATHS[path] += 1
+    if path == "flash":
+        return fa.flash_attn(q, k, v, scale, causal=causal, q0=q0)
+    return _sdpa_einsum(q, k, v, scale, causal=causal, chunk=chunk, q0=q0)
+
+
+def _sdpa_einsum(q, k, v, scale: float, *, causal: bool = True,
+                 chunk: int = ATTN_CHUNK, q0: int = 0) -> torch.Tensor:
+    """``_sdpa``'s einsum path: the reference's arithmetic, GQA by
+    repeating k and v, queries in checkpointed chunks of `chunk`."""
     b, s, h, hd = q.shape
     groups = h // k.shape[2]
     k = _repeat_kv(k, groups)

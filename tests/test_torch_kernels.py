@@ -422,8 +422,8 @@ def test_plain_flip_corrupt_is_plain_ref():
 
 def test_build_names_every_source_by_hash():
     names = _build.kernel_names()
-    assert names == ["bundle_sim", "bundle_update", "flip_corrupt",
-                     "hdc_encode", "loghd_head", "moe_slots",
+    assert names == ["bundle_sim", "bundle_update", "flash_attn",
+                     "flip_corrupt", "hdc_encode", "loghd_head", "moe_slots",
                      "profile_decode"]
     for name in names:
         path = _build.library_path(name)
